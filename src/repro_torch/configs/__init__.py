@@ -1,0 +1,9 @@
+"""Architecture configs (one module per arch) + registry.
+
+Counterpart of ``src/repro/configs/``.  Each module exposes ``full()`` (the
+published hyper-parameters) and ``reduced()`` (same family, small dims, for
+the CPU tests).  Only architectures whose block kinds are ported are listed.
+"""
+from .registry import ARCH_IDS, get_config, get_reduced, list_archs
+
+__all__ = ["ARCH_IDS", "get_config", "get_reduced", "list_archs"]

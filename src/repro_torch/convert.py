@@ -1,0 +1,60 @@
+"""Load the reference's parameters into the port's ``LM``.
+
+No counterpart in ``src/repro/``.  The caller turns the reference's pytree
+into numpy arrays; nothing here imports JAX.  Names, ``(d_in, d_out)`` layouts
+and the leading layer dim are the same on both sides, so conversion is a copy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.config import ModelConfig
+from .models.model import LM, _flatten
+
+
+def to_tensor(arr, device=None, dtype=None) -> torch.Tensor:
+    """numpy -> torch, bit-exact.  A bfloat16 numpy array (``ml_dtypes``) is
+    refused by ``torch.from_numpy``; it is reinterpreted through its 16-bit
+    pattern instead of a float round trip."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
+    """Build an ``LM`` for ``cfg`` holding ``params``: the reference's pytree
+    as numpy arrays (``embed``, ``final_norm``, ``stacks[i]`` dicts with a
+    leading layer dim and a nested ``ffn`` dict, optional ``lm_head``).
+    ``dtype`` overrides the weights' dtype (norm scales stay fp32)."""
+    if "enc_stacks" in params:
+        raise NotImplementedError(
+            "encoder stacks are not ported yet: they come with the "
+            "encoder-decoder slice")
+    lm = LM(cfg, device=device)
+
+    def load(dst: torch.nn.Parameter, src, keep_dtype=False):
+        t = to_tensor(src, lm.device, None if keep_dtype else dtype)
+        if t.shape != dst.shape:
+            raise ValueError(f"shape {tuple(t.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.data = t
+
+    load(lm.embed, params["embed"])
+    load(lm.final_norm, params["final_norm"], keep_dtype=True)
+    if cfg.tie_embeddings != ("lm_head" not in params):
+        raise ValueError("lm_head does not match cfg.tie_embeddings")
+    if not cfg.tie_embeddings:
+        load(lm.lm_head, params["lm_head"])
+    if len(params["stacks"]) != len(lm.stacks):
+        raise ValueError("number of stacks does not match cfg.pattern")
+    for dst, src in zip(lm.stacks, params["stacks"]):
+        flat = _flatten(src)
+        if set(flat) != set(dst.keys()):
+            raise ValueError(f"stack keys {sorted(flat)} != {sorted(dst.keys())}")
+        for name, arr in flat.items():
+            load(dst[name], arr, keep_dtype=name.startswith("norm"))
+    return lm

@@ -1,0 +1,221 @@
+"""Unified LM API over the block-stack patterns, as an ``nn.Module``.
+
+Counterpart of ``src/repro/models/model.py``.  The module owns its parameters
+(the reference passes a ``params`` pytree into every call), with the
+reference's names, its ``(d_in, d_out)`` layouts applied as ``x @ w`` and the
+leading layer dim of each stack, so loading converted weights is a copy
+(``repro_torch/convert.py``)::
+
+    lm = LM(cfg, device="cuda", generator=gen)  # random init from ``gen``
+    logits, caches = lm.prefill(batch)          # serve: context ingestion
+    logits, caches = lm.decode_step(caches, token, position)
+
+Ported: ``forward``, ``init_caches``, ``prefill``, ``prefill_cont``,
+``decode_step``, ``decode_step_paged`` (``impl="dense" | "kernel"``) and
+``score_hidden`` for token-input decoder-only stacks.  Left for later slices,
+each raising ``NotImplementedError``: ``loss`` (training slice), the encoder
+(``enc_pattern``, encoder-decoder slice), ``embeds`` batches and M-RoPE.
+
+Batch dict keys: ``tokens`` (B, S) integer ids; ``positions`` (B, S) optional,
+default arange.  The decode position of :meth:`decode_step` is a Python int.
+Decode steps update the caches they are given in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .blocks import apply_stack, init_block_cache, init_stack
+from .config import ModelConfig
+from .layers import KVCache, dtype_of, rms_norm, rope_angles
+
+_FFN = "ffn_"
+
+
+def _flatten(stack: dict) -> dict:
+    flat = {k: v for k, v in stack.items() if k != "ffn"}
+    flat.update({_FFN + k: v for k, v in stack["ffn"].items()})
+    return flat
+
+
+def _nest(flat) -> dict:
+    out: dict[str, Any] = {"ffn": {}}
+    for k, v in flat.items():
+        if k.startswith(_FFN):
+            out["ffn"][k[len(_FFN):]] = v
+        else:
+            out[k] = v
+    return out
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        """Random parameters drawn from ``generator`` (which must live on
+        ``device``; default: a new one seeded with 0).  ``device=None`` means
+        CUDA and raises without it."""
+        super().__init__()
+        if cfg.enc_pattern or cfg.input_mode != "tokens" or cfg.mrope_sections:
+            raise NotImplementedError(
+                "repro_torch.LM runs token-input decoder-only stacks so far; "
+                "encoders come with the encoder-decoder slice, embeds input "
+                "and M-RoPE with the M-RoPE / embeds-input slice")
+        self.cfg = cfg
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        dtype = dtype_of(cfg.dtype)
+
+        def normal(*shape):
+            w = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return nn.Parameter((w / math.sqrt(cfg.d_model)).to(dtype))
+
+        self.embed = normal(cfg.vocab_size, cfg.d_model)
+        self.final_norm = nn.Parameter(
+            torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev))
+        self.stacks = nn.ModuleList(
+            nn.ParameterDict(_flatten(init_stack(generator, kind, n, cfg, dev)))
+            for kind, n in cfg.pattern)
+        if not cfg.tie_embeddings:
+            self.lm_head = normal(cfg.d_model, cfg.vocab_size)
+        else:
+            self.lm_head = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def stack_params(self, i: int) -> dict:
+        """Stack ``i``'s parameters in the reference's nested layout."""
+        return _nest(self.stacks[i])
+
+    # ------------------------------------------------------------- embedding
+    def _embed_in(self, batch) -> torch.Tensor:
+        if batch.get("embeds") is not None:
+            raise NotImplementedError(
+                "embeds input is not ported yet: it comes with the M-RoPE / "
+                "embeds-input slice")
+        return self.embed[batch["tokens"].long()] * self.cfg.embed_scale
+
+    def _angles(self, positions, seq: int, batch_dim: int):
+        cfg = self.cfg
+        if positions is None:
+            positions = torch.arange(seq, dtype=torch.int32,
+                                     device=self.device).expand(batch_dim, seq)
+        return rope_angles(positions, cfg.hd, cfg.rope_theta,
+                           cfg.mrope_sections)
+
+    def _head(self, x) -> torch.Tensor:
+        cfg = self.cfg
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        return (x @ head) * cfg.logit_scale
+
+    # --------------------------------------------------------------- forward
+    def forward(self, batch, mode: str = "train", caches=None,
+                position: Optional[int] = None, reserve: int = 0):
+        """Returns (hidden (B, S, D), new_caches_or_None)."""
+        cfg = self.cfg
+        x = self._embed_in(batch)
+        b, s, _ = x.shape
+        ctx: dict[str, Any] = {"reserve": reserve}
+        if mode == "decode":
+            pos_arr = torch.full((b, 1), int(position), dtype=torch.int32,
+                                 device=x.device)
+            ctx["angles"] = self._angles(pos_arr, 1, b)
+            ctx["position"] = int(position)
+        elif mode == "prefill_cont":
+            # the new tokens sit at absolute positions [cached_len,
+            # cached_len + s); stacked KVCache leaves are (n, B, S_cached, ..)
+            pos = batch.get("positions")
+            if pos is None:
+                start = caches[0].k.shape[2]
+                pos = (start + torch.arange(s, dtype=torch.int32,
+                                            device=x.device)).expand(b, s)
+            ctx["angles"] = self._angles(pos, s, b)
+        else:
+            ctx["angles"] = self._angles(batch.get("positions"), s, b)
+
+        new_caches = []
+        for i, (kind, _n) in enumerate(cfg.pattern):
+            c = caches[i] if caches is not None else None
+            x, c2 = apply_stack(kind, cfg, self.stack_params(i), x, ctx, c, mode)
+            new_caches.append(c2)
+        return x, (new_caches if mode != "train" else None)
+
+    def loss(self, batch):
+        raise NotImplementedError(
+            "LM.loss is not ported yet: it comes with the training slice")
+
+    # ------------------------------------------------------------- serving
+    def init_caches(self, batch_size: int, cache_len: int, enc_len: int = 0):
+        cfg = self.cfg
+        caches = []
+        for kind, n in cfg.pattern:
+            one = init_block_cache(kind, cfg, batch_size, cache_len, enc_len,
+                                   self.device)
+            caches.append(KVCache(*(
+                leaf[None].repeat(n, *([1] * leaf.dim())) for leaf in one)))
+        return caches
+
+    def prefill(self, batch, reserve: int = 0):
+        """Ingest the full context; returns (last_logits (B, V), caches).
+        ``reserve`` extra cache slots for subsequent decode."""
+        x, caches = self.forward(batch, mode="prefill", reserve=reserve)
+        return self._head(x[:, -1:, :])[:, 0], caches
+
+    def prefill_cont(self, caches, batch, reserve: int = 0):
+        """Continue a prefill on top of cached KV (prefix-KV reuse): ingest
+        ``batch`` (S new tokens per row) at absolute positions starting at
+        the cached length; returns (last_logits (B, V), caches over the full
+        prefix+suffix sequence).  ``caches`` must be exact-length
+        (``reserve=0``); batch-1 caches broadcast over the batch dim."""
+        x, caches = self.forward(batch, mode="prefill_cont", caches=caches,
+                                 reserve=reserve)
+        return self._head(x[:, -1:, :])[:, 0], caches
+
+    def decode_step(self, caches, tokens, position: int):
+        """One token: ids (B, 1).  Returns (logits (B, V), caches); the
+        caches are updated in place."""
+        x, caches = self.forward({"tokens": tokens}, mode="decode",
+                                 caches=caches, position=position)
+        return self._head(x)[:, 0], caches
+
+    def decode_step_paged(self, caches, tokens, positions, tables, *,
+                          block_size: int, impl: str = "dense"):
+        """One decode token per row against the block-paged KV pool.
+
+        caches: list (one per stack) of :class:`~.layers.PagedKV` with leaves
+        (n_layers, num_blocks, block_size, KV, hd): the SHARED arena, written
+        in place; tokens (B, 1); positions (B,) int32 per-row absolute
+        positions; tables (B, MAXB) int32 per-row block tables, 0-padded
+        (block 0 is the dummy block).
+
+        Returns (logits (B, V), caches).  ``impl="dense"`` is the
+        gather+attend path, equal per row to :meth:`decode_step` over a ring
+        cache holding the same tokens; ``impl="kernel"`` runs the paged
+        attention kernel (kernels/paged_attention.py), allclose to it."""
+        cfg = self.cfg
+        if impl not in ("dense", "kernel"):
+            raise ValueError(f"impl must be 'dense' or 'kernel', got {impl!r}")
+        x = self.embed[tokens.long()] * cfg.embed_scale
+        b = tokens.shape[0]
+        ctx: dict[str, Any] = {
+            "angles": self._angles(positions[:, None], 1, b),
+            "paged_tables": tables, "paged_positions": positions,
+            "paged_block_size": block_size, "paged_impl": impl,
+        }
+        for i, (kind, _n) in enumerate(cfg.pattern):
+            x, _ = apply_stack(kind, cfg, self.stack_params(i), x, ctx,
+                               caches[i], "decode_paged")
+        return self._head(x)[:, 0], caches
+
+    def score_hidden(self, batch):
+        """Mean-pooled final hidden state."""
+        x, _ = self.forward(batch, mode="train")
+        return x.float().mean(dim=1)

@@ -4,7 +4,7 @@ Counterpart of ``src/repro/configs/registry.py``.  Lists only the
 architectures the port can run (pure full-attention ``attn`` stacks); the
 reference's other ids raise ``NotImplementedError`` naming the slice that
 brings their blocks.  ``ladder()`` (the model-cascade rung order) comes with
-``core/``.
+the slice of the remaining configs: the port's ``core/`` needs none of it.
 """
 from __future__ import annotations
 
@@ -18,8 +18,10 @@ _MODULES = {
 }
 
 _LATER = {
-    "minicpm-2b": "the scheduler/core slice (needs no new block kind)",
-    "phi4-mini-3.8b": "the scheduler/core slice (needs no new block kind)",
+    "minicpm-2b": "the slice of the remaining pure-attn configs and "
+                  "attn_impl='qchunk' (needs no new block kind)",
+    "phi4-mini-3.8b": "the slice of the remaining pure-attn configs and "
+                      "attn_impl='qchunk' (needs no new block kind)",
     "mixtral-8x22b": "the MoE/Hymba/xLSTM blocks slice",
     "mixtral-8x7b": "the MoE/Hymba/xLSTM blocks slice",
     "hymba-1.5b": "the MoE/Hymba/xLSTM blocks slice",

@@ -6,7 +6,8 @@ root: ``nvcc`` for ``sm_90a`` with a plain C interface, loaded with
 ``ctypes``.  The hash covers every file under ``csrc/`` and the flags, so an
 edited source is rebuilt and a stale library is never loaded.  The build runs
 at first use, never at import, and a failed build raises: there is no other
-implementation to give way to on a CUDA tensor.
+implementation to give way to on a CUDA tensor.  :func:`build_all` starts
+one ``nvcc`` per source together, for a caller that needs every kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -82,3 +84,21 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[name] = ctypes.CDLL(str(_compile(name)))
     return lib
+
+
+def sources() -> list[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(f.stem for f in CSRC.glob("*.cu"))
+
+
+def build_all() -> float:
+    """Build every source with one ``nvcc`` each, all started together, and
+    load them.  Returns the wall seconds; each source's own time lands in
+    :data:`build_seconds`.  Raises if any build fails."""
+    names = sources()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_compile, names))
+    for name in names:
+        load(name)
+    return time.perf_counter() - t0

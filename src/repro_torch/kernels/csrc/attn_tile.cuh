@@ -9,11 +9,13 @@
 // the kv head all reuse the staged tile: it is loaded once and used G times.
 // The running (m, l, acc) state of every head lives in shared memory in fp32.
 //
-// The paged decode kernel (paged_attention.cu) is the first user; a dense
-// ring-cache decode kernel differs only in how it stages a tile and which
-// tokens it flags valid, and can reuse everything here.
+// Users: the paged decode kernel (paged_attention.cu) and the dense
+// ring-cache decode kernel (decode_attention.cu), which differ only in how
+// they stage a tile and which tokens they flag valid.  The prefill kernel
+// (flash_attention.cu) shares the loads and constants below.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro {
@@ -21,6 +23,41 @@ namespace repro {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr size_t kMaxSmem = 232448;  // bytes one block may use on sm_90
+
+// 16-byte global loads unpacked to fp32, and fp32 stores in the output type.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& raw, float* dst) {
+    dst[0] = __uint_as_float(raw.x);
+    dst[1] = __uint_as_float(raw.y);
+    dst[2] = __uint_as_float(raw.z);
+    dst[3] = __uint_as_float(raw.w);
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& raw, float* dst) {
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 is the upper half of the fp32 of the same value
+      dst[2 * i] = __uint_as_float(w[i] << 16);
+      dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ inline float to_float(float x) { return x; }
+__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ inline void from_float(float* p, float x) { *p = x; }
+__device__ inline void from_float(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int HD>
 struct TileCfg {

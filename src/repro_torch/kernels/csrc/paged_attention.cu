@@ -20,45 +20,11 @@
 // Plain C interface, loaded with ctypes.  The launch goes to the stream it is
 // given, allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attn_tile.cuh"
 
 namespace repro {
-
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& raw, float* dst) {
-    dst[0] = __uint_as_float(raw.x);
-    dst[1] = __uint_as_float(raw.y);
-    dst[2] = __uint_as_float(raw.z);
-    dst[3] = __uint_as_float(raw.w);
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& raw, float* dst) {
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // a bf16 is the upper half of the fp32 of the same value
-      dst[2 * i] = __uint_as_float(w[i] << 16);
-      dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ inline void from_float(float* p, float x) { *p = x; }
-__device__ inline void from_float(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -128,8 +94,6 @@ size_t smem_bytes(int g) {
   return sizeof(float) * (2 * TileCfg<HD>::TILE * TileCfg<HD>::LD + attn_state_floats<HD>(g)) +
          sizeof(int) * TileCfg<HD>::TILE;
 }
-
-constexpr size_t kMaxSmem = 232448;  // bytes one block may use on sm_90
 
 template <typename T, int HD>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,

@@ -1,17 +1,35 @@
 """Public wrappers of the package's kernels.
 
 Counterpart of ``src/repro/kernels/ops.py``.  Ported so far:
-``paged_decode_attention``.  The dispatch is by the tensor's device alone: a
-CUDA tensor goes to the CUDA kernel or raises, a CPU tensor takes the plain
-PyTorch version.  The reference's ``REPRO_FORCE_REF`` /
-``REPRO_FORCE_INTERPRET`` knobs have no counterpart here.  ``flash_attention``,
-``decode_attention``, ``topk_scores``, ``borda_count``, ``ssm_scan``,
-``mlstm_scan`` and ``moe_gating`` come with the slices that bring their
-callers.
+``paged_decode_attention``, ``flash_attention`` and ``decode_attention``.
+The dispatch is by the tensor's device alone: a CUDA tensor goes to the CUDA
+kernel or raises, a CPU tensor takes the plain PyTorch version.  The
+reference's ``REPRO_FORCE_REF`` / ``REPRO_FORCE_INTERPRET`` knobs have no
+counterpart here.  As in the reference, the model stack calls only
+``paged_decode_attention`` (through ``ServeEngine(paged_kernel=...)``);
+``flash_attention`` and ``decode_attention`` are reached through these entry
+points.  ``topk_scores``, ``borda_count``, ``ssm_scan``, ``mlstm_scan`` and
+``moe_gating`` come with later slices.
 """
 from __future__ import annotations
 
+from .decode_attention import decode_attention as _decode
+from .flash_attention import flash_attention as _flash
 from .paged_attention import paged_attention as _paged
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, block_q: int = 128, block_k: int = 128):
+    """``q_offset`` > 0 runs suffix-only (chunked) prefill over prepended
+    KV: the kernel-level counterpart of the serving prefix-KV cache."""
+    return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                  block_q=block_q, block_k=block_k)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, block_k: int = 256):
+    """One query token against a dense ring cache; slot valid where
+    ``pos >= 0``."""
+    return _decode(q, k_cache, v_cache, pos, block_k=block_k)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, ctx_len):
@@ -30,8 +48,6 @@ def _not_ported(name: str, slice_name: str):
     return fn
 
 
-flash_attention = _not_ported("flash_attention", "the scheduler/core slice")
-decode_attention = _not_ported("decode_attention", "the scheduler/core slice")
 moe_gating = _not_ported("moe_gating", "the MoE/Hymba/xLSTM blocks slice")
 ssm_scan = _not_ported("ssm_scan", "the MoE/Hymba/xLSTM blocks slice")
 mlstm_scan = _not_ported("mlstm_scan", "the MoE/Hymba/xLSTM blocks slice")

@@ -108,8 +108,8 @@ def gqa_attention_bf16(q, k, v, mask):
 
 def gqa_attention_qchunk(*args, **kwargs):
     raise NotImplementedError(
-        "attn_impl='qchunk' is not ported yet: it comes with the "
-        "flash_attention kernel in the scheduler/core slice")
+        "attn_impl='qchunk' is not ported yet: it comes with the slice of "
+        "the remaining pure-attn configs (no config uses it)")
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,

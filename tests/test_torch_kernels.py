@@ -202,9 +202,26 @@ def test_bound_counts_live_blocks_only():
         1e3 * pa.live_bytes(ctx, 16, 32, 8, 64, 2) / 3.35e12)
 
 
+def _meta_args(name):
+    """Arguments of a ported entry point, on a device that has no kernel."""
+    t = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    if name == "flash_attention":
+        return t(1, 2, 8, 32), t(1, 2, 8, 32), t(1, 2, 8, 32)
+    return (t(1, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32),
+            torch.empty(8, dtype=torch.int32, device="meta"))
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention", "moe_gating",
                                   "ssm_scan", "mlstm_scan", "topk_scores", "borda_count"])
 def test_unported_kernels_raise_by_name(name):
+    """An entry point that cannot run raises an error naming its kernel: the
+    unported ones always, the ported ones (flash and decode attention, since
+    the scheduler/core slice) on a device that has neither a kernel nor the
+    plain version."""
+    if name in ("flash_attention", "decode_attention"):
+        with pytest.raises(RuntimeError, match=name):
+            getattr(ops, name)(*_meta_args(name))
+        return
     with pytest.raises(NotImplementedError, match=name):
         getattr(ops, name)()
 

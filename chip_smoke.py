@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                           # everything; what a checkout must pass
     python3 chip_smoke.py --phases order_by,kernels # the ORDER BY path and the kernels
+    python3 chip_smoke.py --phases families,kernels # the MoE / Hymba / xLSTM families
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
 
 Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
@@ -12,6 +13,13 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   -> ``BatchScheduler`` -> ``ServeEngine(paged_kernel=True)`` at the full width
   of ``stablelm-1.6b`` with seeded random weights; judge rationales decode
   through the paged attention kernel;
+- ``families``: ``hymba-1.5b`` and ``xlstm-1.3b`` at full size and
+  ``mixtral-8x7b`` at full width with its depth cut to 4 of 32 layers, each
+  served by ``ServeEngine`` (an ORDER BY query and a ``generate``; Hymba's
+  longest prompt wraps its 1024-token window), then the tensors layer 0
+  produces on a probe batch through ``ops.moe_gating``, ``ops.ssm_scan`` and
+  ``ops.mlstm_scan``, held against the plain versions and the model path's
+  own results;
 - ``kernels``: each kernel against its plain PyTorch version over the CPU
   tests' sweeps and at full width, timed beside its bound, its plain version
   and, where one exists, the PyTorch call that computes the same function;
@@ -29,7 +37,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,8 +58,16 @@ from repro_torch.core.oracles.model_oracle import ModelOracle  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mlstm_scan as ml  # noqa: E402
+from repro_torch.kernels import moe_gating as mg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models.blocks import _attn_seq, layer_params  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serving import BatchScheduler, ServeEngine  # noqa: E402
 from repro_torch.serving.engine import PAGED_KERNEL_ATOL, PAGED_KERNEL_RTOL  # noqa: E402
 
@@ -79,7 +97,27 @@ FULL_ROWS, FULL_BS, FULL_NB, FULL_MAXB = 32, 16, 768, 23
 DECODE_FULL = dict(b=32, s=1024, fill=600)
 FLASH_MONOLITHIC = dict(b=1, sq=2048, off=0, sk=2048)
 COUNTED = {"paged_attention": pa.paged_attention, "flash_attention": fa.flash_attention,
-           "decode_attention": da.decode_attention}
+           "decode_attention": da.decode_attention, "moe_gating": mg.moe_gating,
+           "ssm_scan": ss.ssm_scan, "mlstm_scan": ml.mlstm_scan}
+# the family kernels' tolerances against their plain versions: gating ids and
+# ranks exact, gates 1e-6; the scans the reference's own (tests/test_kernels.py)
+SCAN_TOL = {"ssm_scan": {torch.float32: dict(atol=1e-4, rtol=0.0),
+                         torch.bfloat16: dict(atol=2e-2, rtol=2e-2)},
+            "mlstm_scan": {torch.float32: dict(atol=2e-3, rtol=0.0),
+                           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}}
+# (t, e, k): test_moe_gating's sweep, then a tile boundary and Mixtral's router
+GATING_SWEEP = [(100, 8, 2), (256, 16, 4), (40, 4, 1), (2049, 8, 2), (300, 64, 8)]
+# (b, s, d, n): test_ssm_scan's sweep, then every built state size, a ragged D
+SSM_SWEEP = [(2, 128, 64, 16), (1, 64, 128, 8), (1, 48, 200, 4), (2, 40, 96, 32),
+             (1, 33, 130, 64)]
+# (b, h, s, dqk, dv): test_mlstm_scan's sweep, then the other built qk dims,
+# a ragged dv and xLSTM's head shape
+MLSTM_SWEEP = [(1, 2, 128, 32, 64), (2, 2, 64, 16, 16), (1, 1, 40, 8, 100),
+               (1, 2, 24, 64, 64), (1, 1, 24, 128, 72), (1, 2, 48, 256, 512)]
+# full-width shapes when phase families did not run: Mixtral's router on
+# 16 x 256 tokens, Hymba's SSM on 8 x 1024, xLSTM's mLSTM on 8 x 4 heads x 256
+FALLBACK_FAMILY = dict(moe_logits=(4096, 8), ssm=(8, 1024, 1600, 16),
+                       mlstm=(8, 4, 256, 256, 512))
 
 
 def say(phase: str, **kw) -> None:
@@ -351,10 +389,164 @@ def kernel_decode(device, flush) -> dict:
                    "src/repro/kernels/decode_attention.py:58", "kernels.ops", shapes)
 
 
-def phase_kernels(device, cont_shapes) -> list:
+def gating_check(logits, k, what) -> float:
+    """The kernel against its plain version: ids and ranks exact, gates to
+    1e-6.  Returns the gates' largest error."""
+    idx, gates, pos = mg.moe_gating(logits, k)
+    torch.cuda.synchronize()
+    p_idx, p_gates, p_pos = mg.moe_gating_plain(logits, k)
+    assert torch.equal(idx, p_idx), f"{what}: expert ids differ from the plain version"
+    assert torch.equal(pos, p_pos), f"{what}: arrival ranks differ from the plain version"
+    err = max_err(gates, p_gates)
+    assert err <= 1e-6, f"{what}: gates differ by {err}"
+    return err
+
+
+def kernel_moe_gating(device, flush, fam) -> dict:
+    """moe_gating against moe_gating_plain on the card: the sweep, ties, then
+    Mixtral's router logits from phase families."""
+    worst = 0.0
+    for i, (t, e, k) in enumerate(GATING_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            lg = randn(np.random.default_rng(30 + i), (t, e), dtype, device)
+            worst = max(worst, gating_check(lg, k, f"moe_gating {(t, e, k)} {dtype}"))
+    ties = randn(np.random.default_rng(39), (512, 8), torch.bfloat16, device).float()
+    ties[:64] = 0.5                            # all eight experts tied
+    ties[64:128, ::2] = 2.0                    # four-way ties at the top
+    worst = max(worst, gating_check(ties, 2, "moe_gating ties"))
+    assert mg.moe_gating(ties, 2)[0][0].tolist() == [0, 1], "a tie went to a higher index"
+    say("kernels.sweep", kernel="moe_gating", shapes=len(GATING_SWEEP) + 1,
+        max_abs_err_gates=worst, ids_and_ranks_exact=True, tol_gates=1e-6)
+
+    if fam:
+        logits, k, tag = fam["logits"], fam["k"], fam["tag"]
+    else:
+        logits, k, tag = (randn(np.random.default_rng(40), FALLBACK_FAMILY["moe_logits"],
+                                torch.float32, device), 2, "fixed (phase families did not run)")
+    t, e = logits.shape
+    err = gating_check(logits, k, f"moe_gating {tag}")
+    bound, by = mg.bound_ms(t, e, k, logits.element_size())
+    rec = dict(shape=f"{tag}: T{t} E{e} k{k}", dtype=dtype_name(logits.dtype), max_abs_err=err,
+               ms=time_ms(lambda: mg.moe_gating(logits, k), flush),
+               plain_ms=time_ms(lambda: mg.moe_gating_plain(logits, k), flush),
+               bound_ms=bound, bound_by=by, library_ms=None)
+    say("kernels.full_width", kernel="moe_gating", **rec)
+    return summary("moe_gating", "src/repro_torch/kernels/csrc/moe_gating.cu",
+                   "src/repro/kernels/moe_gating.py:65", "families", [rec])
+
+
+def ssm_inputs(seed, b, s, d, n, dtype, device):
+    """As tests/test_kernels.py: dt a small positive softplus, a negative."""
+    rng = np.random.default_rng(seed)
+    x = randn(rng, (b, s, d), dtype, device)
+    dt = F.softplus(randn(rng, (b, s, d), torch.float32, device)) * 0.2
+    b_t, c_t = (randn(rng, (b, s, n), torch.float32, device) for _ in range(2))
+    a = -randn(rng, (d, n), torch.float32, device).abs()
+    return x, dt, b_t, c_t, a
+
+
+def kernel_ssm(device, flush, fam) -> dict:
+    """ssm_scan against ssm_scan_plain on the card: the sweep, then Hymba's
+    layer-0 tensors from phase families with x in bf16 (as the model holds
+    x_c) and in fp32."""
+    tol = SCAN_TOL["ssm_scan"]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (b, s, d, n) in enumerate(SSM_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssm_inputs(50 + i, b, s, d, n, dtype, device)
+            got = ss.ssm_scan(*args, block_d=d, chunk=s)
+            torch.cuda.synchronize()
+            err = check_close(got, ss.ssm_scan_plain(*args), dtype,
+                              f"ssm_scan {(b, s, d, n)} {dtype}", tol)
+            worst[dtype] = max(worst[dtype], err)
+    say("kernels.sweep", kernel="ssm_scan", shapes=len(SSM_SWEEP),
+        max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
+        tol_fp32=tol[torch.float32], tol_bf16=tol[torch.bfloat16])
+
+    if fam:
+        base, tag = [fam[k] for k in ("x", "dt", "b_t", "c_t", "a")], fam["tag"]
+    else:
+        base = list(ssm_inputs(59, *FALLBACK_FAMILY["ssm"], torch.bfloat16, device))
+        tag = "fixed (phase families did not run)"
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [base[0].to(dtype)] + base[1:]
+        b, s, d = args[0].shape
+        n = args[4].shape[1]
+        got = ss.ssm_scan(*args, block_d=d, chunk=s)
+        torch.cuda.synchronize()
+        err = check_close(got, ss.ssm_scan_plain(*args), dtype, f"ssm_scan {tag} {dtype}", tol)
+        bound, by = ss.bound_ms(b, s, d, n, args[0].element_size())
+        rec = dict(shape=f"{tag}: B{b} S{s} D{d} N{n}", dtype=dtype_name(dtype),
+                   max_abs_err=err,
+                   ms=time_ms(lambda: ss.ssm_scan(*args, block_d=d, chunk=s), flush),
+                   plain_ms=time_ms(lambda: ss.ssm_scan_plain(*args), flush),
+                   bound_ms=bound, bound_by=by, library_ms=None)
+        say("kernels.full_width", kernel="ssm_scan", **rec)
+        shapes.append(rec)
+    return summary("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                   "src/repro/kernels/ssm_scan.py:43", "families", shapes)
+
+
+def mlstm_inputs(seed, b, h, s, dqk, dv, dtype, device):
+    """As tests/test_kernels.py: forget gates shifted towards remembering."""
+    rng = np.random.default_rng(seed)
+    q, k = (randn(rng, (b, h, s, dqk), dtype, device) for _ in range(2))
+    v = randn(rng, (b, h, s, dv), dtype, device)
+    i_g = randn(rng, (b, h, s), torch.float32, device)
+    f_g = randn(rng, (b, h, s), torch.float32, device) + 2.0
+    return q, k, v, i_g, f_g
+
+
+def kernel_mlstm(device, flush, fam) -> dict:
+    """mlstm_scan against mlstm_scan_plain on the card: the sweep, then
+    xLSTM's layer-0 tensors from phase families in bf16 (the model's type)
+    and fp32."""
+    tol = SCAN_TOL["mlstm_scan"]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (b, h, s, dqk, dv) in enumerate(MLSTM_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = mlstm_inputs(60 + i, b, h, s, dqk, dv, dtype, device)
+            got = ml.mlstm_scan(*args, chunk=s)
+            torch.cuda.synchronize()
+            err = check_close(got, ml.mlstm_scan_plain(*args), dtype,
+                              f"mlstm_scan {(b, h, s, dqk, dv)} {dtype}", tol)
+            worst[dtype] = max(worst[dtype], err)
+    say("kernels.sweep", kernel="mlstm_scan", shapes=len(MLSTM_SWEEP),
+        max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
+        tol_fp32=tol[torch.float32], tol_bf16=tol[torch.bfloat16])
+
+    if fam:
+        base, tag = [fam[k] for k in ("q", "k", "v", "i_g", "f_g")], fam["tag"]
+    else:
+        base = list(mlstm_inputs(69, *FALLBACK_FAMILY["mlstm"], torch.bfloat16, device))
+        tag = "fixed (phase families did not run)"
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [t.to(dtype) for t in base[:3]] + base[3:]
+        b, h, s, dqk = args[0].shape
+        dv = args[2].shape[-1]
+        got = ml.mlstm_scan(*args, chunk=s)
+        torch.cuda.synchronize()
+        err = check_close(got, ml.mlstm_scan_plain(*args), dtype, f"mlstm_scan {tag} {dtype}",
+                          tol)
+        bound, by = ml.bound_ms(b, h, s, dqk, dv, dtype)
+        rec = dict(shape=f"{tag}: B{b} H{h} S{s} dqk{dqk} dv{dv}", dtype=dtype_name(dtype),
+                   max_abs_err=err, ms=time_ms(lambda: ml.mlstm_scan(*args, chunk=s), flush),
+                   plain_ms=time_ms(lambda: ml.mlstm_scan_plain(*args), flush),
+                   bound_ms=bound, bound_by=by, library_ms=None)
+        say("kernels.full_width", kernel="mlstm_scan", **rec)
+        shapes.append(rec)
+    return summary("mlstm_scan", "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+                   "src/repro/kernels/mlstm_scan.py:73", "families", shapes)
+
+
+def phase_kernels(device, cont_shapes, fam) -> list:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     return [kernel_paged(device, flush), kernel_flash(device, flush, cont_shapes),
-            kernel_decode(device, flush)]
+            kernel_decode(device, flush), kernel_moe_gating(device, flush, fam.get("moe_gating")),
+            kernel_ssm(device, flush, fam.get("ssm_scan")),
+            kernel_mlstm(device, flush, fam.get("mlstm_scan"))]
 
 
 def phase_ops(device) -> dict:
@@ -527,6 +719,231 @@ def phase_order_by(device, card, seed) -> tuple:
               ("order_by prefill_cont, most work", max(cont, key=lambda s: s[0] * s[1] * s[3]))]
     cont_shapes = [(tag, dict(b=b, sq=sq, off=off, sk=sk)) for tag, (b, sq, off, sk) in picked]
     return launches, cont_shapes
+
+
+# ------------------------------------------- MoE / Hymba / xLSTM families
+# (arch, depth or None for the full depth).  mixtral-8x7b's 46.7 B parameters
+# (about 93 GB in bf16) do not fit the card's 80 GB: 4 of its 32 layers.
+FAMILY_RUNS = [("hymba-1.5b", None), ("xlstm-1.3b", None), ("mixtral-8x7b", 4)]
+FAMILY_PATH = "pointwise"
+FAMILY_PROMPTS = [("Summarize the following ticket for the on-call engineer.\nTicket: ",
+                   "disk 3 on rack 21 reports 6 reallocated sectors"),
+                  "Count to ten.", "Write one line about block tables."]
+# longer than Hymba's 1024-token window, so the hymba_l rings wrap
+LONG_PROMPT = "Summarize this log.\n" + "".join(
+    f"step {i}: the scheduler admitted a row and freed two blocks. " for i in range(24))
+# Hymba's d_inner 1600 is no multiple of the reference's default block_d 256,
+# which its entry would refuse; 320 divides it (the kernel needs neither)
+SSM_BLOCK_D = 320
+# the kernels against the model path's own results on the same tensors: the
+# scans in fp32 sum in other orders (the model's SSM chunk is a log-depth
+# scan, its mLSTM chunkwise), so absolute and relative tolerances
+MODEL_TOL = {"ssm_scan": dict(atol=1e-4, rtol=1e-4), "mlstm_scan": dict(atol=2e-3, rtol=2e-3)}
+
+
+def family_config(arch, depth):
+    cfg = get_config(arch)
+    if depth is None:
+        return cfg
+    (kind, _), = cfg.pattern
+    return dataclasses.replace(cfg, n_layers=depth, pattern=((kind, depth),))
+
+
+def record_prefills(lm, batches: list):
+    """Keep the token batch of every ``prefill`` the engine issues (``del
+    lm.prefill`` removes the shim)."""
+    inner = lm.prefill
+
+    def counted(batch, reserve=0):
+        batches.append(batch["tokens"])
+        return inner(batch, reserve=reserve)
+
+    lm.prefill = counted
+
+
+@torch.inference_mode()
+def prefill_decode_rel_err(lm, seed) -> float:
+    """The reference's contract (tests/test_models_smoke.py): a 16-token
+    prefill plus one decode step against the 17-token forward's last logits,
+    relative to their scale.  Reported, not asserted, at full width."""
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (2, 17)).astype(np.int32)).to(lm.device)
+    x, _ = lm.forward({"tokens": toks}, mode="train")
+    ref = lm._head(x)[:, -1].float()
+    _, caches = lm.prefill({"tokens": toks[:, :16]}, reserve=4)
+    logits, _ = lm.decode_step(caches, toks[:, 16:], 16)
+    assert torch.isfinite(ref).all() and torch.isfinite(logits).all()
+    return float((ref - logits.float()).abs().max()) / (float(ref.abs().max()) + 1e-6)
+
+
+@torch.inference_mode()
+def window_wraps(lm, ids) -> dict:
+    """Prefill ``ids`` alone and check the first windowed stack's ring: it
+    holds exactly the last ``sliding_window`` positions."""
+    cfg = lm.cfg
+    i = next(i for i, (kind, _) in enumerate(cfg.pattern) if kind == "hymba_l")
+    _, caches = lm.prefill({"tokens": torch.tensor([ids], dtype=torch.int32, device=lm.device)})
+    kv = caches[i][0]
+    s, w = len(ids), cfg.sliding_window
+    assert kv.k.shape[2] == w, kv.k.shape
+    assert sorted(kv.pos[0].tolist()) == list(range(s - w, s)), "the ring did not wrap"
+    return dict(prompt_tokens=s, window=w, ring_holds_last_window=True)
+
+
+@torch.inference_mode()
+def layer0_tensors(lm, toks):
+    """What layer 0 feeds its kernel-shaped function on a probe batch,
+    computed with the port's own helpers, and the model path's result on
+    those tensors: Mixtral's router logits and ``moe_ffn``'s routing of them;
+    Hymba's x_c, dt, b_t, c_t, a = -exp(A_log) and the scan's y before the
+    gate; xLSTM's q (times sqrt(qk): the model scales q, the kernel scales it
+    again), k, v, i, f and the chunkwise h before the group norm."""
+    cfg = lm.cfg
+    kind = cfg.pattern[0][0]
+    p = layer_params(lm.stack_params(0), 0)
+    x = lm._embed_in({"tokens": toks})
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    b, s = toks.shape
+    if kind in ("moe", "moe_swa"):
+        window = cfg.sliding_window if kind == "moe_swa" else 0
+        a, _ = _attn_seq(p, h, cfg, lm._angles(None, s, b), window)
+        h2 = rms_norm(x + cfg.residual_scale * a, p["norm2"], cfg.norm_eps)
+        logits = (h2.reshape(b * s, -1) @ p["moe"]["router"]).float()
+        idx, gates, pos = moe_mod.route(logits, cfg.moe.top_k)
+        return "moe_gating", dict(logits=logits, k=cfg.moe.top_k), dict(idx=idx, gates=gates,
+                                                                          pos=pos)
+    if kind in ("hymba_g", "hymba_l"):
+        x_c, _ = ssm_mod.ssm_conv_input(p["ssm"], h)
+        dt, a, b_t, c_t = ssm_mod._ssm_coeffs(p["ssm"], x_c)
+        y, _ = ssm_mod.ssm_scan_chunked(p["ssm"], x_c, cfg.scan_chunk)
+        d_x = p["ssm"]["D_skip"] * x_c.float()
+        return "ssm_scan", dict(x=x_c.contiguous(), dt=dt, b_t=b_t, c_t=c_t,
+                                a=a.contiguous(), d_x=d_x), dict(y=y + d_x)
+    q, k, v, i_g, f_g = xlstm_mod._mlstm_qkvif(p, h, cfg.n_heads, cfg.qk, cfg.hd)
+    state = xlstm_mod.init_mlstm_state(b, cfg.n_heads, cfg.qk, cfg.hd, lm.device)
+    h_pre, _ = xlstm_mod.mlstm_chunkwise(q, k, v, i_g, f_g, cfg.scan_chunk, state)
+    # q * sqrt(qk) in fp32: the kernel's own 1 / sqrt(qk) then gives back the
+    # model's q (exactly at qk 256, where the scale is 16)
+    return "mlstm_scan", dict(q=(q.float() * math.sqrt(cfg.qk)).contiguous(), k=k.contiguous(),
+                              v=v.contiguous(), i_g=i_g.contiguous(),
+                              f_g=f_g.contiguous()), dict(h=h_pre)
+
+
+def family_kernel(name, ins, model, tag) -> dict:
+    """The family's kernel through ``repro_torch.kernels.ops`` on layer 0's
+    tensors, against its plain version and against the model path's own
+    result.  The counts are set to 0 just before and read just after."""
+    reset_launches()                           # ---- the path starts here
+    if name == "moe_gating":
+        idx, gates, pos = ops.moe_gating(ins["logits"], ins["k"])
+    elif name == "ssm_scan":
+        args = (ins["x"].float(), ins["dt"], ins["b_t"], ins["c_t"], ins["a"])
+        s = args[0].shape[1]
+        y = ops.ssm_scan(*args, block_d=SSM_BLOCK_D, chunk=min(64, s))
+    else:
+        args = (ins["q"].float(), ins["k"].float(), ins["v"].float(), ins["i_g"], ins["f_g"])
+        s = args[0].shape[2]
+        h = ops.mlstm_scan(*args, chunk=min(64, s))
+    torch.cuda.synchronize()
+    launches = read_launches()                 # ---- and ends here
+    assert launches[name] > 0, launches
+    if name == "moe_gating":
+        p_idx, p_gates, p_pos = mg.moe_gating_plain(ins["logits"], ins["k"])
+        assert torch.equal(idx, p_idx) and torch.equal(pos, p_pos), "differs from the plain version"
+        assert torch.equal(idx.long(), model["idx"]), "expert ids differ from moe_ffn's"
+        assert torch.equal(pos.long(), model["pos"]), "arrival ranks differ from moe_ffn's"
+        err_plain, err_model = max_err(gates, p_gates), max_err(gates, model["gates"])
+        assert err_plain <= 1e-6 and err_model <= 1e-6, (err_plain, err_model)
+        top3 = ins["logits"].sort(dim=-1, descending=True)[0][:, :3]
+        extra = dict(ids_and_ranks_equal_moe_ffn=True, tokens=int(idx.shape[0]),
+                     rows_with_a_tie_in_top3=int((top3.diff(dim=-1) == 0).any(-1).sum()))
+    elif name == "ssm_scan":
+        err_plain = check_close(y, ss.ssm_scan_plain(*args), torch.float32, f"ssm_scan {tag}",
+                                SCAN_TOL[name])
+        torch.testing.assert_close(y + ins["d_x"], model["y"], **MODEL_TOL[name],
+                                   msg=lambda m: f"ssm_scan vs ssm_sequence {tag}: {m}")
+        err_model = max_err(y + ins["d_x"], model["y"])
+        extra = dict(block_d=SSM_BLOCK_D, model_tol=MODEL_TOL[name])
+    else:
+        err_plain = check_close(h, ml.mlstm_scan_plain(*args), torch.float32,
+                                f"mlstm_scan {tag}", SCAN_TOL[name])
+        torch.testing.assert_close(h, model["h"], **MODEL_TOL[name],
+                                   msg=lambda m: f"mlstm_scan vs mlstm_sequence {tag}: {m}")
+        err_model = max_err(h, model["h"])
+        extra = dict(model_tol=MODEL_TOL[name])
+    say("families.kernel", kernel=name, shape=tag, launches=launches[name],
+        max_abs_err_vs_plain=err_plain, max_abs_err_vs_model_path=err_model, **extra)
+    return launches
+
+
+def phase_families(device, card, seed) -> tuple:
+    """Hymba, xLSTM and Mixtral (depth cut), one after another, each served
+    by ``ServeEngine`` at full width with seeded random bf16 weights, then
+    its kernel on layer 0's tensors.  Returns the kernels' launches on this
+    path and the tensors, kept for phase kernels."""
+    keys = as_keys(PASSAGES)
+    launches = collections.Counter()
+    fam = {}
+    for arch, depth in FAMILY_RUNS:
+        cfg = family_config(arch, depth)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, device=device, generator=torch.Generator(device).manual_seed(seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = ServeEngine(lm, max_new_tokens=16)
+        # recurrent state, ring placement and batch-ranked expert capacity:
+        # no prefix KV and no paged pool, as the reference's engine decides
+        assert not eng.prefix_cache_enabled and not eng.paged_enabled and eng.pool is None
+
+        batches = []
+        record_prefills(lm, batches)
+        st = eng.stats
+        before = (st.calls, st.probe_rows)
+        t1 = time.perf_counter()
+        res, _ = llm_order_by(keys, QUERY, ModelOracle(eng), descending=True, limit=5,
+                              path=FAMILY_PATH)
+        torch.cuda.synchronize()
+        query_s = time.perf_counter() - t1
+        del lm.prefill                         # the shim goes
+        assert len(res.order) == 5 and len(set(res.uids())) == 5, res.uids()
+        submissions, probe_rows = st.calls - before[0], st.probe_rows - before[1]
+
+        prompts = list(FAMILY_PROMPTS) + ([LONG_PROMPT] if arch == "hymba-1.5b" else [])
+        before = st.decode_tokens
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_per=[16] * len(prompts))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t1
+        assert len(outs) == len(prompts) and all(isinstance(o, str) for o in outs)
+        window = window_wraps(lm, eng.tok.encode(LONG_PROMPT)) if arch == "hymba-1.5b" else None
+        say("families.model", card=card, arch=cfg.name, layers=cfg.decoder_layers(),
+            depth_cut=f"{depth} of {get_config(arch).n_layers} layers" if depth else None,
+            dtype=cfg.dtype, params=sum(p.numel() for p in lm.parameters()),
+            init_seconds=init_s, query_path=FAMILY_PATH, query_wall_seconds=query_s,
+            submissions=submissions, probe_rows=probe_rows, n_calls=res.n_calls,
+            order=res.uids(), generate_prompts=len(prompts), generate_wall_seconds=gen_s,
+            decode_tokens=st.decode_tokens - before, window=window,
+            prefill_decode_vs_forward_rel_err=prefill_decode_rel_err(lm, seed),
+            wall_seconds=time.perf_counter() - t0,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        toks = max(batches, key=lambda t: t.numel())
+        name, ins, model = layer0_tensors(lm, toks)
+        tag = f"{cfg.name} layer 0, probe batch {tuple(toks.shape)}"
+        launches.update(family_kernel(name, ins, model, tag))
+        fam[name] = dict(ins, tag=tag)
+        del eng, lm, model
+        torch.cuda.empty_cache()
+        # the same contract with the same seed's weights in fp32: how much of
+        # the bf16 figure is rounding carried through the layers
+        lm32 = LM(dataclasses.replace(cfg, dtype="float32"), device=device,
+                  generator=torch.Generator(device).manual_seed(seed))
+        say("families.contract", arch=cfg.name,
+            prefill_decode_vs_forward_rel_err_fp32=prefill_decode_rel_err(lm32, seed))
+        del lm32
+        torch.cuda.empty_cache()
+    return dict(launches), fam
 
 
 # ------------------------------------------------------- serving path (PR 11)
@@ -719,14 +1136,15 @@ def phase_profile(device, card, seed) -> None:
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,kernels,ops,main,llama"
+DEFAULT_PHASES = "order_by,families,kernels,ops,main,llama"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
-                    help="comma-separated subset of order_by,kernels,ops,main,llama,profile")
+                    help="comma-separated subset of order_by,families,kernels,ops,main,"
+                         "llama,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -744,9 +1162,12 @@ def main(argv=None) -> int:
 
     launches_by_path = {}
     cont_shapes = FALLBACK_CONT
+    fam = {}
     if "order_by" in phases:
         launches_by_path["order_by"], cont_shapes = phase_order_by(device, card, args.seed)
-    kernels = phase_kernels(device, cont_shapes) if "kernels" in phases else None
+    if "families" in phases:
+        launches_by_path["families"], fam = phase_families(device, card, args.seed)
+    kernels = phase_kernels(device, cont_shapes, fam) if "kernels" in phases else None
     if "ops" in phases:
         launches_by_path["kernels.ops"] = phase_ops(device)
     if "main" in phases:
@@ -755,16 +1176,18 @@ def main(argv=None) -> int:
         phase_llama(device, card, args.seed)
     if "profile" in phases:
         phase_profile(device, card, args.seed)
-    if kernels is not None and {"order_by", "ops"} <= phases:
+    if kernels is not None and {"order_by", "families", "ops"} <= phases:
         for k in kernels:
-            # ``launches``: the main path's (order_by) count; each kernel must
-            # have launched on the path it is reached by
-            k["launches"] = launches_by_path["order_by"][k["name"]]
+            # ``launches``: the count on the path that reaches the kernel
+            # (order_by for the paged kernel, the ops path for flash and
+            # decode, families for the MoE / SSM / mLSTM kernels), each path
+            # counted from 0 just before it ran
             k["launches_by_path"] = {p: n[k["name"]] for p, n in launches_by_path.items()}
-            assert k["launches_by_path"][k["path"]] > 0, f"{k['name']} never launched"
+            k["launches"] = k["launches_by_path"][k["path"]]
+            assert k["launches"] > 0, f"{k['name']} never launched on {k['path']}"
     elif kernels is not None:
-        say("note", text="phases order_by and ops did not both run: no launch counts, "
-                         "so no kernels line")
+        say("note", text="phases order_by, families and ops did not all run: no launch "
+                         "counts, so no kernels line")
         kernels = None
     say("done", seconds=time.perf_counter() - t_start)
     if kernels is not None:

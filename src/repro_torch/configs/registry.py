@@ -1,10 +1,10 @@
 """Arch id -> config registry.
 
 Counterpart of ``src/repro/configs/registry.py``.  Lists only the
-architectures the port can run (pure full-attention ``attn`` stacks); the
-reference's other ids raise ``NotImplementedError`` naming the slice that
-brings their blocks.  ``ladder()`` (the model-cascade rung order) comes with
-the slice of the remaining configs: the port's ``core/`` needs none of it.
+architectures the port can run; the reference's other ids raise
+``NotImplementedError`` naming the slice that brings them.  ``ladder()``
+(the model-cascade rung order) comes with the slice of the remaining
+configs: the port's ``core/`` needs none of it.
 """
 from __future__ import annotations
 
@@ -15,6 +15,10 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1p6b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1p3b",
 }
 
 _LATER = {
@@ -22,10 +26,6 @@ _LATER = {
                   "attn_impl='qchunk' (needs no new block kind)",
     "phi4-mini-3.8b": "the slice of the remaining pure-attn configs and "
                       "attn_impl='qchunk' (needs no new block kind)",
-    "mixtral-8x22b": "the MoE/Hymba/xLSTM blocks slice",
-    "mixtral-8x7b": "the MoE/Hymba/xLSTM blocks slice",
-    "hymba-1.5b": "the MoE/Hymba/xLSTM blocks slice",
-    "xlstm-1.3b": "the MoE/Hymba/xLSTM blocks slice",
     "seamless-m4t-medium": "the encoder-decoder slice",
     "qwen2-vl-7b": "the M-RoPE / embeds-input slice",
 }

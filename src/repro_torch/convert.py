@@ -25,11 +25,19 @@ def to_tensor(arr, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+# parameters the reference keeps in fp32 whatever the model's dtype
+FP32_PARAMS = frozenset({
+    "norm1", "norm2", "fuse_a", "fuse_s",               # norm scales
+    "ssm_dt_bias", "ssm_A_log", "ssm_D_skip",           # SSM coefficients
+    "gn_scale", "b_z", "b_i", "b_f", "b_o"})            # xLSTM norms, biases
+
+
 def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
     """Build an ``LM`` for ``cfg`` holding ``params``: the reference's pytree
     as numpy arrays (``embed``, ``final_norm``, ``stacks[i]`` dicts with a
-    leading layer dim and a nested ``ffn`` dict, optional ``lm_head``).
-    ``dtype`` overrides the weights' dtype (norm scales stay fp32)."""
+    leading layer dim, nested ``ffn`` / ``moe`` / ``ssm`` dicts and the flat
+    mLSTM / sLSTM keys, optional ``lm_head``).  ``dtype`` overrides the
+    weights' dtype; the names in :data:`FP32_PARAMS` stay fp32."""
     if "enc_stacks" in params:
         raise NotImplementedError(
             "encoder stacks are not ported yet: they come with the "
@@ -56,5 +64,5 @@ def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
         if set(flat) != set(dst.keys()):
             raise ValueError(f"stack keys {sorted(flat)} != {sorted(dst.keys())}")
         for name, arr in flat.items():
-            load(dst[name], arr, keep_dtype=name.startswith("norm"))
+            load(dst[name], arr, keep_dtype=name in FP32_PARAMS)
     return lm

@@ -18,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scalar.cuh"
+
 namespace repro {
 
 constexpr float kNegInf = -1e30f;
@@ -53,11 +55,6 @@ struct Vec16<__nv_bfloat16> {
     }
   }
 };
-
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ inline void from_float(float* p, float x) { *p = x; }
-__device__ inline void from_float(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int HD>
 struct TileCfg {

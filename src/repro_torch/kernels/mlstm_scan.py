@@ -1,0 +1,167 @@
+"""Stabilised mLSTM recurrence: the CUDA kernel's wrapper and its plain
+version.
+
+Counterpart of ``src/repro/kernels/mlstm_scan.py`` (``mlstm_scan``, the
+Pallas TPU kernel) and of ``src/repro/kernels/ref.py`` (``mlstm_ref``, here
+:func:`mlstm_scan_plain`).
+
+Source note.  ``csrc/mlstm_scan.cu`` replaces the Pallas kernel
+``repro/kernels/mlstm_scan.py::mlstm_scan``.  The function does about
+``4 * dqk * dv`` operations per step and head (the memory update and its
+read-out) against q, k, v, the gates and h moved once: at xLSTM's width
+about 170 operations per byte, so on an H100 it is bound by bytes against
+the tensor cores' bf16 rate and by operations in fp32 (:func:`bound_ms`).
+One head's memory C at xLSTM's width (dqk 256 x dv 512 fp32, 512 KB) does
+not fit one block, so the kernel gives each block one (sequence * head,
+64-column tile of dv): the block's 256 x 64 slice of C lives in its
+threads' registers for the whole sequence, the normaliser n and stabiliser
+m, which every tile needs, are recomputed in each, and the block steps
+through S with the per-step recurrence (the TPU kernel ran it chunkwise with
+matrix products; the same h up to where the stabiliser is applied, hence the
+reference's 2e-3 tolerance).  Scalar fp32 FMAs: a chunkwise form on the
+tensor cores is later work.
+
+q and k are (B, H, S, dqk), v (B, H, S, dv), fp32 or bf16 alike; the gates
+i, f (B, H, S) fp32; q is scaled by ``1 / sqrt(dqk)`` inside, as in the
+reference.  A CUDA tensor goes to the kernel or raises; only a CPU tensor
+takes the plain version.  ``mlstm_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+SUPPORTED_QK_DIMS = (8, 16, 32, 64, 128, 256)
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# peak operations per second by input type (H100 SXM data sheet, dense):
+# tensor cores for bf16, the fp32 units for fp32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mlstm_scan_plain(q, k, v, i_g, f_g):
+    """The per-step recurrence in fp32, as ``ref.mlstm_ref`` (C, n, m start
+    at 0); h (B, H, S, dv) in q's dtype."""
+    bsz, hh, s, dqk = q.shape
+    dv = v.shape[-1]
+    qs = q.float() / math.sqrt(dqk)
+    kf, vf = k.float(), v.float()
+    c = torch.zeros((bsz, hh, dqk, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((bsz, hh, dqk), dtype=torch.float32, device=q.device)
+    m = torch.zeros((bsz, hh), dtype=torch.float32, device=q.device)
+    hs = []
+    for t in range(s):
+        lf = F.logsigmoid(f_g[:, :, t].float())
+        ig = i_g[:, :, t].float()
+        m2 = torch.maximum(lf + m, ig)
+        decay = torch.exp(lf + m - m2)
+        inj = torch.exp(ig - m2)
+        c = decay[..., None, None] * c + inj[..., None, None] * (
+            kf[:, :, t, :, None] * vf[:, :, t, None, :])
+        n = decay[..., None] * n + inj[..., None] * kf[:, :, t]
+        num = torch.einsum("bhkv,bhk->bhv", c, qs[:, :, t])
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qs[:, :, t]).abs(),
+                            torch.exp(-m2))
+        hs.append(num / den[..., None])
+        m = m2
+    return torch.stack(hs, dim=2).to(q.dtype)
+
+
+def check_args(q, k, v, i_g, f_g) -> None:
+    """Raise on anything the CUDA kernel cannot take, for a tensor on any
+    device.  Touches no data."""
+    if q.dim() != 4 or v.dim() != 4 or i_g.dim() != 3:
+        raise ValueError(f"q, k must be (B, H, S, dqk), v (B, H, S, dv), gates "
+                         f"(B, H, S); got {tuple(q.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(i_g.shape)}")
+    bsz, hh, s, dqk = q.shape
+    if k.shape != q.shape or v.shape[:3] != (bsz, hh, s):
+        raise ValueError(f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if i_g.shape != (bsz, hh, s) or f_g.shape != (bsz, hh, s):
+        raise ValueError(f"gates {tuple(i_g.shape)}, {tuple(f_g.shape)} must be "
+                         f"{(bsz, hh, s)}")
+    if dqk not in SUPPORTED_QK_DIMS:
+        raise ValueError(f"qk head dim {dqk} not supported: the kernel is built "
+                         f"for {SUPPORTED_QK_DIMS}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    for name, t in (("i_g", i_g), ("f_g", f_g)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("i_g", i_g), ("f_g", f_g)):
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def mlstm_scan(q, k, v, i_g, f_g, *, chunk: int = 64):
+    """q, k: (B, H, S, dqk); v: (B, H, S, dv); i_g, f_g: (B, H, S) ->
+    h (B, H, S, dv) in q's dtype.  As in the reference, S must be a
+    multiple of ``chunk``; the kernel steps one position at a time and its
+    result does not depend on it."""
+    check_args(q, k, v, i_g, f_g)
+    bsz, hh, s, dqk = q.shape
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"S = {s} must be a multiple of chunk = {chunk}")
+    if q.device.type == "cpu":
+        return mlstm_scan_plain(q, k, v, i_g, f_g)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no mlstm_scan kernel for {q.device}")
+    dv = v.shape[-1]
+    out = torch.empty((bsz, hh, s, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_g.data_ptr(),
+                f_g.data_ptr(), out.data_ptr(), bsz * hh, s, dqk, dv,
+                _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(dqk), stream)
+    if rc != 0:
+        raise RuntimeError(f"mlstm_scan_launch failed with code {rc} for q "
+                           f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)}")
+    mlstm_scan.launches += 1
+    return out
+
+
+mlstm_scan.launches = 0
+
+
+def _launcher():
+    fn = _build.load("mlstm_scan").mlstm_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def live_bytes(bsz: int, hh: int, s: int, dqk: int, dv: int, itemsize: int) -> int:
+    """Bytes the function must move: q, k, v and h in their type, the two
+    fp32 gates, each once."""
+    return bsz * hh * s * (itemsize * (2 * dqk + 2 * dv) + 8)
+
+
+def operations(bsz: int, hh: int, s: int, dqk: int, dv: int) -> int:
+    """Per step and head: the memory update and its read-out (a
+    multiply-add each per element of C) and the normaliser's update and dot
+    product, about ``4 dqk dv + 4 dqk``."""
+    return bsz * hh * s * (4 * dqk * dv + 4 * dqk)
+
+
+def bound_ms(bsz: int, hh: int, s: int, dqk: int, dv: int, dtype):
+    """Least time an H100 could take: the larger of :func:`live_bytes` over
+    the memory rate and :func:`operations` over the peak for the input type.
+    Returns ``(ms, "bytes" | "operations")``."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return max((1e3 * live_bytes(bsz, hh, s, dqk, dv, item) / HBM_BYTES_PER_S, "bytes"),
+               (1e3 * operations(bsz, hh, s, dqk, dv) / PEAK_FLOPS[dtype], "operations"))

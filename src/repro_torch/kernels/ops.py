@@ -1,21 +1,26 @@
 """Public wrappers of the package's kernels.
 
 Counterpart of ``src/repro/kernels/ops.py``.  Ported so far:
-``paged_decode_attention``, ``flash_attention`` and ``decode_attention``.
+``paged_decode_attention``, ``flash_attention``, ``decode_attention``,
+``moe_gating``, ``ssm_scan`` and ``mlstm_scan``.
 The dispatch is by the tensor's device alone: a CUDA tensor goes to the CUDA
 kernel or raises, a CPU tensor takes the plain PyTorch version.  The
 reference's ``REPRO_FORCE_REF`` / ``REPRO_FORCE_INTERPRET`` knobs have no
 counterpart here.  As in the reference, the model stack calls only
-``paged_decode_attention`` (through ``ServeEngine(paged_kernel=...)``);
-``flash_attention`` and ``decode_attention`` are reached through these entry
-points.  ``topk_scores``, ``borda_count``, ``ssm_scan``, ``mlstm_scan`` and
-``moe_gating`` come with later slices.
+``paged_decode_attention`` (through ``ServeEngine(paged_kernel=...)``); the
+others are reached through these entry points, while the model's MoE, SSM
+and mLSTM blocks compute the same functions in plain PyTorch, as the
+reference's do in XLA.  ``topk_scores`` and ``borda_count`` come with the
+training slice.
 """
 from __future__ import annotations
 
 from .decode_attention import decode_attention as _decode
 from .flash_attention import flash_attention as _flash
+from .mlstm_scan import mlstm_scan as _mlstm
+from .moe_gating import moe_gating as _moe_gate
 from .paged_attention import paged_attention as _paged
+from .ssm_scan import ssm_scan as _ssm
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -39,6 +44,24 @@ def paged_decode_attention(q, k_pool, v_pool, tables, ctx_len):
     return _paged(q, k_pool, v_pool, tables, ctx_len)
 
 
+def ssm_scan(x, dt, b_t, c_t, a, *, block_d: int = 256, chunk: int = 64):
+    """Mamba selective scan with an fp32 state: x, dt (B, S, D); b_t, c_t
+    (B, S, N); a (D, N) -> y (B, S, D) in x's dtype."""
+    return _ssm(x, dt, b_t, c_t, a, block_d=block_d, chunk=chunk)
+
+
+def mlstm_scan(q, k, v, i_g, f_g, *, chunk: int = 64):
+    """Stabilised mLSTM: q, k (B, H, S, dqk), v (B, H, S, dv), gates
+    (B, H, S) -> h (B, H, S, dv) in q's dtype; q is scaled inside."""
+    return _mlstm(q, k, v, i_g, f_g, chunk=chunk)
+
+
+def moe_gating(logits, k: int, *, block_t: int = 256):
+    """Router logits (T, E) -> top-k expert ids (T, k) int32, softmax-of-top-k
+    gates (T, k) fp32, row-major arrival ranks per expert (T, k) int32."""
+    return _moe_gate(logits, k, block_t=block_t)
+
+
 def _not_ported(name: str, slice_name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
@@ -48,8 +71,5 @@ def _not_ported(name: str, slice_name: str):
     return fn
 
 
-moe_gating = _not_ported("moe_gating", "the MoE/Hymba/xLSTM blocks slice")
-ssm_scan = _not_ported("ssm_scan", "the MoE/Hymba/xLSTM blocks slice")
-mlstm_scan = _not_ported("mlstm_scan", "the MoE/Hymba/xLSTM blocks slice")
 topk_scores = _not_ported("topk_scores", "the training slice")
 borda_count = _not_ported("borda_count", "the training slice")

@@ -1,6 +1,6 @@
 """Model substrate of the port.  Counterpart of ``src/repro/models/``:
-``config``, ``layers``, ``blocks`` (kind ``attn``) and ``model`` are ported;
-``moe``, ``ssm`` and ``xlstm`` come with the MoE/Hymba/xLSTM blocks slice."""
+``config``, ``layers``, ``moe``, ``ssm``, ``xlstm``, ``blocks`` (every kind
+but ``enc`` / ``xdec``) and ``model``."""
 from .config import InputShape, ModelConfig, MoESpec, SHAPES
 from .model import LM
 

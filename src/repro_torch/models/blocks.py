@@ -1,12 +1,15 @@
 """Block kinds and layer stacks.
 
-Counterpart of ``src/repro/models/blocks.py``.  Ported: kind ``attn`` (full
-causal attention + SwiGLU FFN) in all five modes (``train``, ``prefill``,
-``decode``, ``prefill_cont``, ``decode_paged``).  Every other kind (``swa``,
-``moe``, ``moe_swa``, ``hymba_g``, ``hymba_l``, ``mlstm``, ``slstm``, ``enc``,
-``xdec``) and ``attn_impl="qchunk"`` raise ``NotImplementedError`` naming the
-slice that brings them.  Activation rematerialisation (``cfg.remat``) belongs
-to training and is not read here.
+Counterpart of ``src/repro/models/blocks.py``.  Ported: kinds ``attn``
+(full causal attention + SwiGLU FFN), ``swa`` (sliding-window attention +
+FFN), ``moe`` / ``moe_swa`` (full / sliding-window attention + top-k MoE
+FFN), ``hymba_g`` / ``hymba_l`` (full / sliding-window attention in
+parallel with Mamba SSM heads, + FFN), ``mlstm`` and ``slstm`` (xLSTM), in
+modes ``train``, ``prefill`` and ``decode``; ``prefill_cont`` and
+``decode_paged`` for ``attn`` only, as in the reference.  Kinds ``enc`` and
+``xdec`` and ``attn_impl="qchunk"`` raise ``NotImplementedError`` naming the
+slice that brings them.  Activation rematerialisation (``cfg.remat``)
+belongs to training and is not read here.
 
 A stack of ``n`` layers keeps its parameters stacked with a leading layer dim,
 as the reference does; where the reference scans over that dim, the port runs
@@ -14,9 +17,12 @@ a Python loop.  All kinds share one signature::
 
     apply_block(kind, cfg, p, x, ctx, cache, mode) -> (x', cache')
 
-``ctx`` carries the rope angles, the scalar decode position (a Python int)
-and, for paged decode, the block tables and per-row positions.  Decode modes
-update their cache in place and return the same object.
+``ctx`` carries the rope angles (None for a purely recurrent model), the
+scalar decode position (a Python int) and, for paged decode, the block tables
+and per-row positions.  A layer's cache is a ``KVCache``, an SSM / mLSTM /
+sLSTM state, or a tuple of those (Hymba); a stack's cache has the same
+structure with a leading layer dim on every leaf.  :func:`apply_stack`
+leaves decode-mode caches updated in place.
 """
 from __future__ import annotations
 
@@ -30,22 +36,22 @@ from .layers import (KVCache, PagedKV, apply_rope, causal_mask, dtype_of,
                      gqa_attention, gqa_attention_bf16, gqa_attention_qchunk,
                      paged_decode_attention_dense, paged_write,
                      paged_write_index, rms_norm, stacked_dense_init, swiglu)
+from .moe import init_moe_params, moe_ffn
+from .ssm import (init_ssm_params, init_ssm_state, ssm_prefill_state,
+                  ssm_sequence, ssm_step)
+from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
+                    init_slstm_state, mlstm_sequence, mlstm_step,
+                    slstm_sequence, slstm_step)
 
-_LATER = {
-    "swa": "the MoE/Hymba/xLSTM blocks slice",
-    "moe": "the MoE/Hymba/xLSTM blocks slice",
-    "moe_swa": "the MoE/Hymba/xLSTM blocks slice",
-    "hymba_g": "the MoE/Hymba/xLSTM blocks slice",
-    "hymba_l": "the MoE/Hymba/xLSTM blocks slice",
-    "mlstm": "the MoE/Hymba/xLSTM blocks slice",
-    "slstm": "the MoE/Hymba/xLSTM blocks slice",
-    "enc": "the encoder-decoder slice",
-    "xdec": "the encoder-decoder slice",
-}
+KINDS = ("attn", "swa", "moe", "moe_swa", "hymba_g", "hymba_l", "mlstm",
+         "slstm")
+WINDOWED = {"swa", "moe_swa", "hymba_l"}
+MODES = ("train", "prefill", "decode", "prefill_cont", "decode_paged")
+_LATER = {"enc": "the encoder-decoder slice", "xdec": "the encoder-decoder slice"}
 
 
-def _require_attn(kind: str) -> None:
-    if kind == "attn":
+def _check_kind(kind: str) -> None:
+    if kind in KINDS:
         return
     if kind in _LATER:
         raise NotImplementedError(
@@ -58,8 +64,9 @@ def _require_attn(kind: str) -> None:
 def init_stack(gen: torch.Generator, kind: str, n: int, cfg: ModelConfig,
                device) -> dict[str, Any]:
     """Parameters of ``n`` stacked layers of ``kind``: the reference's names
-    and ``(d_in, d_out)`` layouts with a leading layer dim, ``ffn`` nested."""
-    _require_attn(kind)
+    and ``(d_in, d_out)`` layouts with a leading layer dim; ``ffn``, ``moe``
+    and ``ssm`` nested, norm scales fp32."""
+    _check_kind(kind)
     dtype = dtype_of(cfg.dtype)
     d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
     depth_scale = 1.0 / math.sqrt(2.0 * max(cfg.decoder_layers(), 1))
@@ -70,14 +77,26 @@ def init_stack(gen: torch.Generator, kind: str, n: int, cfg: ModelConfig,
     def zeros():
         return torch.zeros((n, d), dtype=torch.float32, device=device)
 
-    return {
-        "norm1": zeros(),
-        "wq": dense(d, h * hd), "wk": dense(d, kv * hd),
-        "wv": dense(d, kv * hd), "wo": dense(h * hd, d, depth_scale),
-        "norm2": zeros(),
-        "ffn": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                "w_down": dense(f, d, depth_scale)},
-    }
+    p: dict[str, Any] = {"norm1": zeros()}
+    if kind == "mlstm":
+        p.update(init_mlstm_params(gen, n, d, h, cfg.qk, hd, dtype, device))
+        return p
+    if kind == "slstm":
+        p.update(init_slstm_params(gen, n, d, h, hd, dtype, device))
+        return p
+    p.update({"wq": dense(d, h * hd), "wk": dense(d, kv * hd),
+              "wv": dense(d, kv * hd), "wo": dense(h * hd, d, depth_scale)})
+    if kind in ("hymba_g", "hymba_l"):
+        p["ssm"] = init_ssm_params(gen, n, d, cfg.d_inner, cfg.ssm_state,
+                                   cfg.ssm_conv_width, dtype, device)
+        p["fuse_a"], p["fuse_s"] = zeros(), zeros()
+    p["norm2"] = zeros()
+    if kind in ("moe", "moe_swa"):
+        p["moe"] = init_moe_params(gen, n, d, f, cfg.moe, dtype, device)
+    else:
+        p["ffn"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
+                    "w_down": dense(f, d, depth_scale)}
+    return p
 
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, device):
@@ -92,12 +111,58 @@ def layer_params(stack: dict, i: int) -> dict:
 
 
 # ------------------------------------------------------------------- caches
+def map_cache(fn, cache):
+    """Apply ``fn`` to every tensor of a (nested tuple / NamedTuple) cache."""
+    if isinstance(cache, torch.Tensor):
+        return fn(cache)
+    leaves = (map_cache(fn, c) for c in cache)
+    return type(cache)(*leaves) if hasattr(cache, "_fields") else tuple(leaves)
+
+
+def stack_caches(caches: list):
+    """Per-layer caches of one structure -> one cache with a leading layer
+    dim on every leaf."""
+    first = caches[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(caches)
+    leaves = (stack_caches(list(group)) for group in zip(*caches))
+    return type(first)(*leaves) if hasattr(first, "_fields") else tuple(leaves)
+
+
+def _copy_into(dst, src) -> None:
+    """Write a layer's new cache into its view of the stacked cache, leaf by
+    leaf (a leaf updated in place is skipped)."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+        return
+    for d, s in zip(dst, src):
+        _copy_into(d, s)
+
+
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      enc_len: int = 0, device=None):
-    """Cache for ONE layer of ``kind``."""
-    _require_attn(kind)
-    return KVCache.init(batch, cache_len, cfg.n_kv_heads, cfg.hd,
-                        dtype_of(cfg.dtype), device)
+    """Cache for ONE layer of ``kind``: a ring KVCache (of length
+    ``min(sliding_window, cache_len)`` for windowed kinds), with the SSM
+    state beside it for Hymba, or the mLSTM / sLSTM state."""
+    _check_kind(kind)
+    dtype = dtype_of(cfg.dtype)
+
+    def kvc(length):
+        return KVCache.init(batch, length, cfg.n_kv_heads, cfg.hd, dtype, device)
+
+    win = min(cfg.sliding_window, cache_len)
+    if kind in ("attn", "moe"):
+        return kvc(cache_len)
+    if kind in ("swa", "moe_swa"):
+        return kvc(win)
+    if kind in ("hymba_g", "hymba_l"):
+        return (kvc(cache_len if kind == "hymba_g" else win),
+                init_ssm_state(batch, cfg.d_inner, cfg.ssm_state,
+                               cfg.ssm_conv_width, dtype, device))
+    if kind == "mlstm":
+        return init_mlstm_state(batch, cfg.n_heads, cfg.qk, cfg.hd, device)
+    return init_slstm_state(batch, cfg.n_heads, cfg.hd, device)
 
 
 # ---------------------------------------------------------------- attention
@@ -119,10 +184,10 @@ def _attn_fn(cfg: ModelConfig):
     return gqa_attention_bf16 if cfg.attn_impl == "bf16" else gqa_attention
 
 
-def _attn_seq(p, x, cfg, angles):
+def _attn_seq(p, x, cfg, angles, window: int):
     q, k, v = _qkv(p, x, cfg, angles)
     s = x.shape[1]
-    out = _attn_fn(cfg)(q, k, v, causal_mask(s, s, device=x.device))
+    out = _attn_fn(cfg)(q, k, v, causal_mask(s, s, window, device=x.device))
     return out.reshape(*x.shape[:2], -1) @ p["wo"], (k, v)
 
 
@@ -194,55 +259,100 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
 # ------------------------------------------------------------------- apply
 def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
     if mode in ("prefill_cont", "decode_paged") and kind != "attn":
+        # 'moe' is full-attention but its expert capacity is ranked ACROSS
+        # the batch, so suffix-only dispatch would differ from a monolithic
+        # prefill; the paged pool likewise only holds full-attention KV (no
+        # ring placement, no recurrent state)
         raise NotImplementedError(
             f"{mode} (paged/prefix KV reuse) supports pure full-attention "
             f"'attn' stacks only, got {kind!r}")
-    _require_attn(kind)
+    _check_kind(kind)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode}")
     rs = cfg.residual_scale
     eps = cfg.norm_eps
     angles = ctx.get("angles")
+    window = cfg.sliding_window if kind in WINDOWED else 0
+    reserve = ctx.get("reserve", 0)
     new_cache = cache
+
+    if kind in ("attn", "swa", "moe", "moe_swa"):
+        h = rms_norm(x, p["norm1"], eps)
+        if mode == "decode":
+            a, new_cache = _attn_decode(p, h, cfg, angles, cache, ctx["position"])
+        elif mode == "decode_paged":
+            a, new_cache = _attn_decode_paged(p, h, cfg, angles, cache, ctx)
+        elif mode == "prefill_cont":
+            a, new_cache = _attn_cont(p, h, cfg, angles, cache, reserve)
+        else:
+            a, (k, v) = _attn_seq(p, h, cfg, angles, window)
+            if mode == "prefill":
+                new_cache = KVCache.from_prefill(k, v, window, reserve)
+        x = x + rs * a
+        h = rms_norm(x, p["norm2"], eps)
+        if kind in ("moe", "moe_swa"):
+            # single device: the reference's sharded dispatch needs a mesh
+            return x + rs * moe_ffn(p["moe"], h, cfg.moe), new_cache
+        return x + rs * swiglu(h, **p["ffn"]), new_cache
+
+    if kind in ("hymba_g", "hymba_l"):
+        h = rms_norm(x, p["norm1"], eps)
+        if mode == "decode":
+            kvc, sst = cache
+            a, kvc = _attn_decode(p, h, cfg, angles, kvc, ctx["position"])
+            s_out, sst = ssm_step(p["ssm"], h, sst)
+            new_cache = (kvc, sst)
+        else:
+            a, (k, v) = _attn_seq(p, h, cfg, angles, window)
+            if mode == "prefill":
+                s_out, sst = ssm_prefill_state(p["ssm"], h, chunk=cfg.scan_chunk)
+                new_cache = (KVCache.from_prefill(k, v, window, reserve), sst)
+            else:
+                s_out, _ = ssm_sequence(p["ssm"], h, chunk=cfg.scan_chunk)
+        fused = 0.5 * (rms_norm(a, p["fuse_a"], eps) + rms_norm(s_out, p["fuse_s"], eps))
+        x = x + rs * fused
+        h = rms_norm(x, p["norm2"], eps)
+        return x + rs * swiglu(h, **p["ffn"]), new_cache
+
     h = rms_norm(x, p["norm1"], eps)
-    if mode == "decode":
-        a, new_cache = _attn_decode(p, h, cfg, angles, cache, ctx["position"])
-    elif mode == "decode_paged":
-        a, new_cache = _attn_decode_paged(p, h, cfg, angles, cache, ctx)
-    elif mode == "prefill_cont":
-        a, new_cache = _attn_cont(p, h, cfg, angles, cache,
-                                  ctx.get("reserve", 0))
-    elif mode in ("train", "prefill"):
-        a, (k, v) = _attn_seq(p, h, cfg, angles)
-        if mode == "prefill":
-            new_cache = KVCache.from_prefill(k, v, 0, ctx.get("reserve", 0))
-    else:
-        raise ValueError(f"unknown mode {mode}")
-    x = x + rs * a
-    h = rms_norm(x, p["norm2"], eps)
-    x = x + rs * swiglu(h, **p["ffn"])
-    return x, new_cache
+    if kind == "mlstm":
+        if mode == "decode":
+            y, new_cache = mlstm_step(p, h, cfg.n_heads, cfg.qk, cfg.hd, cache)
+        else:
+            y, st = mlstm_sequence(p, h, cfg.n_heads, cfg.qk, cfg.hd,
+                                   chunk=cfg.scan_chunk)
+            if mode == "prefill":
+                new_cache = st
+    else:                                   # slstm
+        if mode == "decode":
+            y, new_cache = slstm_step(p, h, cfg.n_heads, cfg.hd, cache)
+        else:
+            y, st = slstm_sequence(p, h, cfg.n_heads, cfg.hd)
+            if mode == "prefill":
+                new_cache = st
+    return x + rs * y, new_cache
 
 
 # ------------------------------------------------------------------- stacks
-def _layer_cache(cache, i: int):
-    return type(cache)(*(leaf[i] for leaf in cache))
-
-
 def apply_stack(kind: str, cfg: ModelConfig, stack, x, ctx, cache=None,
                 mode: str = "train"):
     """Run ``apply_block`` over the layers of a stacked-parameter stack.
 
-    cache: stacked (leading dim n) KVCache / PagedKV, or None.  Returns
-    (x, cache): for ``prefill`` and ``prefill_cont`` a newly stacked KVCache,
-    for ``decode`` and ``decode_paged`` the cache passed in, updated in
-    place, for ``train`` None.
+    cache: the stack's cache (leading layer dim on every leaf), a stacked
+    PagedKV for ``decode_paged``, or None.  Returns (x, cache): for
+    ``prefill`` and ``prefill_cont`` a newly stacked cache, for ``decode``
+    and ``decode_paged`` the cache passed in, updated in place, for
+    ``train`` None.
     """
     n = stack["norm1"].shape[0]
     emitted = []
     for i in range(n):
-        c = _layer_cache(cache, i) if cache is not None else None
+        c = map_cache(lambda leaf: leaf[i], cache) if cache is not None else None
         x, c2 = apply_block(kind, cfg, layer_params(stack, i), x, ctx, c, mode)
         if mode in ("prefill", "prefill_cont"):
             emitted.append(c2)
+        elif mode == "decode":
+            _copy_into(c, c2)
     if emitted:
-        return x, KVCache(*(torch.stack(leaves) for leaves in zip(*emitted)))
+        return x, stack_caches(emitted)
     return x, (cache if mode in ("decode", "decode_paged") else None)

@@ -3,8 +3,7 @@ paged decode), SwiGLU.
 
 Counterpart of ``src/repro/models/layers.py``; plain functions on tensors.
 Left for later slices, each raising ``NotImplementedError`` where a caller
-could reach it: M-RoPE (3-D positions) in :func:`rope_angles`, the
-sliding-window ring placements of :meth:`KVCache.from_prefill`, and
+could reach it: M-RoPE (3-D positions) in :func:`rope_angles` and
 ``gqa_attention_qchunk``.
 
 Conventions (as in the reference): activations in the config's dtype, softmax
@@ -148,19 +147,29 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def from_prefill(k, v, window: int = 0, reserve: int = 0) -> "KVCache":
-        """Build a cache from prefill-computed k/v (B, S, KV, hd), with
-        ``reserve`` extra empty slots so that later decode positions never
-        wrap the ring."""
-        if window:
-            raise NotImplementedError(
-                "sliding-window cache placement is not ported yet: it comes "
-                "with the 'swa' blocks in the MoE/Hymba/xLSTM blocks slice")
-        s = k.shape[1]
-        pos = torch.arange(s, dtype=torch.int32, device=k.device)
-        if reserve:
-            k = F.pad(k, (0, 0, 0, 0, 0, reserve))
-            v = F.pad(v, (0, 0, 0, 0, 0, reserve))
-            pos = F.pad(pos, (0, reserve), value=-1)
+        """Build a cache from prefill-computed k/v (B, S, KV, hd).  Sliding
+        window: a ring of ``window`` slots holding the trailing ``window``
+        positions at ``slot = position % window`` (``window < S``), or the
+        S positions followed by empty slots (``window >= S``).  Full
+        attention: ``reserve`` extra empty slots so that later decode
+        positions never wrap the ring."""
+        b, s = k.shape[:2]
+        dev = k.device
+        if window and window < s:
+            slots = torch.arange(s - window, s, device=dev) % window
+            kr = torch.zeros((b, window) + k.shape[2:], dtype=k.dtype, device=dev)
+            vr = torch.zeros((b, window) + v.shape[2:], dtype=v.dtype, device=dev)
+            kr[:, slots] = k[:, s - window:]
+            vr[:, slots] = v[:, s - window:]
+            pos = torch.full((window,), -1, dtype=torch.int32, device=dev)
+            pos[slots] = torch.arange(s - window, s, dtype=torch.int32, device=dev)
+            return KVCache(kr, vr, pos)
+        pad = (window - s) if window else reserve
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        if pad:
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+            pos = F.pad(pos, (0, pad), value=-1)
         return KVCache(k, v, pos)
 
     def update(self, k_new, v_new, position: int) -> "KVCache":

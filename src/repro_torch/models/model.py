@@ -12,8 +12,11 @@ leading layer dim of each stack, so loading converted weights is a copy
 
 Ported: ``forward``, ``init_caches``, ``prefill``, ``prefill_cont``,
 ``decode_step``, ``decode_step_paged`` (``impl="dense" | "kernel"``) and
-``score_hidden`` for token-input decoder-only stacks.  Left for later slices,
-each raising ``NotImplementedError``: ``loss`` (training slice), the encoder
+``score_hidden`` for token-input decoder-only stacks of every block kind but
+``enc`` / ``xdec`` (the grouped patterns of Hymba and xLSTM included;
+``prefill_cont`` and ``decode_step_paged`` for pure ``attn`` stacks, as in
+the reference).  Left for later slices, each raising
+``NotImplementedError``: ``loss`` (training slice), the encoder
 (``enc_pattern``, encoder-decoder slice), ``embeds`` batches and M-RoPE.
 
 Batch dict keys: ``tokens`` (B, S) integer ids; ``positions`` (B, S) optional,
@@ -29,24 +32,29 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .blocks import apply_stack, init_block_cache, init_stack
+from .blocks import apply_stack, init_block_cache, init_stack, map_cache
 from .config import ModelConfig
-from .layers import KVCache, dtype_of, rms_norm, rope_angles
+from .layers import dtype_of, rms_norm, rope_angles
 
-_FFN = "ffn_"
+NESTED = ("ffn", "moe", "ssm")
 
 
 def _flatten(stack: dict) -> dict:
-    flat = {k: v for k, v in stack.items() if k != "ffn"}
-    flat.update({_FFN + k: v for k, v in stack["ffn"].items()})
+    """``{"ffn": {"w_up": w}}`` -> ``{"ffn_w_up": w}``, for an
+    ``nn.ParameterDict`` (no other key of a stack starts with these
+    prefixes)."""
+    flat = {k: v for k, v in stack.items() if k not in NESTED}
+    for group in NESTED:
+        flat.update({f"{group}_{k}": v for k, v in stack.get(group, {}).items()})
     return flat
 
 
 def _nest(flat) -> dict:
-    out: dict[str, Any] = {"ffn": {}}
+    out: dict[str, Any] = {}
     for k, v in flat.items():
-        if k.startswith(_FFN):
-            out["ffn"][k[len(_FFN):]] = v
+        group, _, leaf = k.partition("_")
+        if group in NESTED:
+            out.setdefault(group, {})[leaf] = v
         else:
             out[k] = v
     return out
@@ -104,6 +112,8 @@ class LM(nn.Module):
 
     def _angles(self, positions, seq: int, batch_dim: int):
         cfg = self.cfg
+        if all(kind in ("mlstm", "slstm") for kind, _ in cfg.pattern):
+            return None                     # purely recurrent: no RoPE
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
                                      device=self.device).expand(batch_dim, seq)
@@ -159,8 +169,8 @@ class LM(nn.Module):
         for kind, n in cfg.pattern:
             one = init_block_cache(kind, cfg, batch_size, cache_len, enc_len,
                                    self.device)
-            caches.append(KVCache(*(
-                leaf[None].repeat(n, *([1] * leaf.dim())) for leaf in one)))
+            caches.append(map_cache(
+                lambda leaf: leaf[None].repeat(n, *([1] * leaf.dim())), one))
         return caches
 
     def prefill(self, batch, reserve: int = 0):

@@ -204,21 +204,31 @@ def test_bound_counts_live_blocks_only():
 
 def _meta_args(name):
     """Arguments of a ported entry point, on a device that has no kernel."""
-    t = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    t = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                                        device="meta")
     if name == "flash_attention":
         return t(1, 2, 8, 32), t(1, 2, 8, 32), t(1, 2, 8, 32)
-    return (t(1, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32),
-            torch.empty(8, dtype=torch.int32, device="meta"))
+    if name == "decode_attention":
+        return t(1, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32), t(8, dtype=torch.int32)
+    if name == "moe_gating":
+        return t(16, 8), 2
+    if name == "ssm_scan":
+        return t(1, 64, 32), t(1, 64, 32), t(1, 64, 16), t(1, 64, 16), t(32, 16)
+    return t(1, 2, 64, 16), t(1, 2, 64, 16), t(1, 2, 64, 32), t(1, 2, 64), t(1, 2, 64)
+
+
+PORTED = ("flash_attention", "decode_attention", "moe_gating", "ssm_scan", "mlstm_scan")
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention", "moe_gating",
                                   "ssm_scan", "mlstm_scan", "topk_scores", "borda_count"])
 def test_unported_kernels_raise_by_name(name):
     """An entry point that cannot run raises an error naming its kernel: the
-    unported ones always, the ported ones (flash and decode attention, since
-    the scheduler/core slice) on a device that has neither a kernel nor the
-    plain version."""
-    if name in ("flash_attention", "decode_attention"):
+    unported ones always, the ported ones (flash and decode attention since
+    the scheduler/core slice; MoE gating, the SSM scan and the mLSTM scan
+    since the MoE/Hymba/xLSTM slice) on a device that has neither a kernel
+    nor the plain version."""
+    if name in PORTED:
         with pytest.raises(RuntimeError, match=name):
             getattr(ops, name)(*_meta_args(name))
         return

@@ -129,12 +129,34 @@ def test_kv_cache_from_prefill_update_and_mask(reserve):
 
 
 def test_kv_cache_init_and_window_refusal():
+    """``from_prefill`` against the reference for S = 6: no window, windows
+    that wrap the ring (3, 4), one that fits exactly (6) and one with empty
+    slots after the prefix (9); then a decode step into the ring.  What the
+    reference refuses is refused: continued prefill over a windowed kind's
+    ring."""
     c = TL.KVCache.init(2, 6, 2, 8, torch.bfloat16)
     jc = JL.KVCache.init(2, 6, 2, 8, jnp.bfloat16)
     assert c.k.shape == jc.k.shape and c.k.dtype == torch.bfloat16
     assert (c.pos.numpy() == np.asarray(jc.pos)).all()
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        TL.KVCache.from_prefill(t(rnd(0, 1, 4, 1, 8)), t(rnd(1, 1, 4, 1, 8)), window=2)
+    k, v = rnd(0, 2, 6, 2, 8), rnd(1, 2, 6, 2, 8)
+    kn, vn = rnd(2, 2, 1, 2, 8), rnd(3, 2, 1, 2, 8)
+    for window in (0, 3, 4, 6, 9):
+        tc = TL.KVCache.from_prefill(t(k), t(v), window=window, reserve=2)
+        jc = JL.KVCache.from_prefill(j(k), j(v), window, 2)
+        for a, b in zip(tc, jc):
+            assert a.shape == b.shape and (f32(a) == f32(b)).all(), window
+        assert tc.pos.dtype == torch.int32
+        tc = tc.update(t(kn), t(vn), 6)
+        jc = jc.update(j(kn), j(vn), jnp.int32(6))
+        for a, b in zip(tc, jc):
+            assert (f32(a) == f32(b)).all(), window
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import blocks as TB
+    cfg = get_reduced("mixtral-8x7b")
+    p = TB.init_block(torch.Generator().manual_seed(0), "moe_swa", cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="'moe_swa'"):
+        TB.apply_block("moe_swa", cfg, p, torch.zeros(1, 1, cfg.d_model), {}, tc,
+                       "prefill_cont")
 
 
 # --------------------------------------------------------------- paged decode

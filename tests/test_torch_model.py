@@ -71,13 +71,13 @@ def copy_arenas(jarenas, pool: KVBlockPool) -> None:
 
 
 def test_configs_equal_the_reference_field_by_field():
-    for arch in ARCHS:
+    from repro.configs import get_config as jfull
+    for arch in ARCHS + ["mixtral-8x7b", "mixtral-8x22b", "hymba-1.5b", "xlstm-1.3b"]:
         assert dataclasses.asdict(get_reduced(arch)) == dataclasses.asdict(jget(arch))
-        from repro.configs import get_config as jfull
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jfull(arch))
     assert isinstance(get_reduced("llama3-8b"), ModelConfig)
-    with pytest.raises(NotImplementedError, match="mixtral-8x7b"):
-        get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="seamless-m4t-medium"):
+        get_config("seamless-m4t-medium")
 
 
 @torch.inference_mode()
@@ -257,11 +257,24 @@ def test_apply_stack_modes_against_reference(mode):
 @pytest.mark.parametrize("kind", ["swa", "moe", "moe_swa", "hymba_g", "hymba_l",
                                   "mlstm", "slstm", "enc", "xdec"])
 def test_other_block_kinds_raise_by_name(kind):
-    cfg = get_reduced("llama3-8b")
-    with pytest.raises(NotImplementedError, match=kind):
-        TB.init_stack(torch.Generator().manual_seed(0), kind, 1, cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        TB.apply_block(kind, cfg, {}, torch.zeros(1, 1, cfg.d_model), {}, None, "train")
+    """``enc`` / ``xdec`` are not ported and raise by name; every other kind
+    builds, and refuses the prefix-KV and paged modes by name, as the
+    reference's ``apply_block`` does."""
+    cfg = get_reduced({"moe": "mixtral-8x7b", "moe_swa": "mixtral-8x7b",
+                       "hymba_g": "hymba-1.5b", "hymba_l": "hymba-1.5b",
+                       "mlstm": "xlstm-1.3b", "slstm": "xlstm-1.3b"}.get(kind, "llama3-8b"))
+    x = torch.zeros(1, 1, cfg.d_model)
+    if kind in ("enc", "xdec"):
+        with pytest.raises(NotImplementedError, match=kind):
+            TB.init_stack(torch.Generator().manual_seed(0), kind, 1, cfg, "cpu")
+        with pytest.raises(NotImplementedError):
+            TB.apply_block(kind, cfg, {}, x, {}, None, "train")
+        return
+    p = TB.init_block(torch.Generator().manual_seed(0), kind, cfg, "cpu")
+    cache = TB.init_block_cache(kind, cfg, 1, 8, device="cpu")
+    for mode in ("prefill_cont", "decode_paged"):
+        with pytest.raises(NotImplementedError, match=f"{mode}.*'{kind}'"):
+            TB.apply_block(kind, cfg, p, x, {}, cache, mode)
 
 
 def test_qchunk_and_unported_model_features_raise():

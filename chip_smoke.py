@@ -3,6 +3,7 @@
     python3 chip_smoke.py                           # everything; what a checkout must pass
     python3 chip_smoke.py --phases order_by,kernels # the ORDER BY path and the kernels
     python3 chip_smoke.py --phases families,kernels # the MoE / Hymba / xLSTM families
+    python3 chip_smoke.py --phases train,kernels    # train minicpm-2b, resume, serve it
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
 
 Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
@@ -20,6 +21,18 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   produces on a probe batch through ``ops.moe_gating``, ``ops.ssm_scan`` and
   ``ops.mlstm_scan``, held against the plain versions and the model path's
   own results;
+- ``train``: ``minicpm-2b`` at full size (40 layers, 2.7 B parameters, bf16)
+  trained a few steps through ``Trainer`` with the training example's
+  settings (two microbatches, int8 error-feedback gradients, the WSD
+  schedule); a crash-and-resume drill at full width with the depth cut to
+  2 layers, whose resumed parameters must equal an uninterrupted run's bit
+  for bit; then the trained 40-layer weights served through
+  ``ServeEngine(paged_kernel=True)`` -> ``ModelOracle`` -> ``llm_order_by``
+  (the example's ``ext_pointwise ... LIMIT 5`` query and the budget-aware
+  optimizer with Borda selection), and ``ops.topk_scores`` and
+  ``ops.borda_count`` on the scores and ballots those queries produced, held
+  against their plain versions and against the path's own top 5 and Borda
+  points;
 - ``kernels``: each kernel against its plain PyTorch version over the CPU
   tests' sweeps and at full width, timed beside its bound, its plain version
   and, where one exists, the PyTorch call that computes the same function;
@@ -30,7 +43,7 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
 
 Fails (non-zero exit, no result line) when there is no CUDA device, when a
 kernel does not build, launch or agree, when a path did not go through its
-kernels, or when an ORDER BY contract breaks.  The last line of the output is
+kernels, or when an ORDER BY or training contract breaks.  The last line of the output is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -38,12 +51,15 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,14 +70,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import OrderQuery, as_keys, llm_order_by, llm_order_by_many  # noqa: E402
+from repro_torch.core.access_paths import pointwise as pointwise_mod  # noqa: E402
+from repro_torch.core.optimizer import optimizer as optimizer_mod  # noqa: E402
+from repro_torch.core.optimizer.borda import borda_matrix  # noqa: E402
 from repro_torch.core.oracles.model_oracle import ModelOracle  # noqa: E402
+from repro_torch.data import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import borda_count as bc  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mlstm_scan as ml  # noqa: E402
 from repro_torch.kernels import moe_gating as mg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
+from repro_torch.kernels import topk_scores as tk  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -70,6 +92,9 @@ from repro_torch.models.blocks import _attn_seq, layer_params  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serving import BatchScheduler, ServeEngine  # noqa: E402
 from repro_torch.serving.engine import PAGED_KERNEL_ATOL, PAGED_KERNEL_RTOL  # noqa: E402
+from repro_torch.training import OptimConfig, TrainConfig, Trainer  # noqa: E402
+from repro_torch.training.fault_tolerance import SimulatedFailure  # noqa: E402
+from repro_torch.training.tree import flatten_with_path, leaves, path_str  # noqa: E402
 
 # H100 SXM data sheet, operations per second by input type: the rate a kernel
 # could reach at best (tensor cores for bf16), whatever units ours uses
@@ -98,7 +123,8 @@ DECODE_FULL = dict(b=32, s=1024, fill=600)
 FLASH_MONOLITHIC = dict(b=1, sq=2048, off=0, sk=2048)
 COUNTED = {"paged_attention": pa.paged_attention, "flash_attention": fa.flash_attention,
            "decode_attention": da.decode_attention, "moe_gating": mg.moe_gating,
-           "ssm_scan": ss.ssm_scan, "mlstm_scan": ml.mlstm_scan}
+           "ssm_scan": ss.ssm_scan, "mlstm_scan": ml.mlstm_scan,
+           "topk_scores": tk.topk_scores, "borda_count": bc.borda_count}
 # the family kernels' tolerances against their plain versions: gating ids and
 # ranks exact, gates 1e-6; the scans the reference's own (tests/test_kernels.py)
 SCAN_TOL = {"ssm_scan": {torch.float32: dict(atol=1e-4, rtol=0.0),
@@ -118,6 +144,19 @@ MLSTM_SWEEP = [(1, 2, 128, 32, 64), (2, 2, 64, 16, 16), (1, 1, 40, 8, 100),
 # 16 x 256 tokens, Hymba's SSM on 8 x 1024, xLSTM's mLSTM on 8 x 4 heads x 256
 FALLBACK_FAMILY = dict(moe_logits=(4096, 8), ssm=(8, 1024, 1600, 16),
                        mlstm=(8, 4, 256, 256, 512))
+# (n, k, block_n): test_topk's sweep, a tile that is not a power of two, a
+# ragged last tile, k above block_n, the largest tile; then the large shape
+TOPK_SWEEP = [(1000, 10, 256), (4096, 16, 1024), (77, 5, 64), (128, 1, 32), (3, 5, 1024),
+              (1100, 7, 512), (20, 40, 16), (5000, 300, 8192)]
+TOPK_LARGE = dict(n=1 << 20, k=64, block_n=1024)
+# (r, s, n): test_borda's sweep, ids past n_items, a wide ballot; then the
+# large shape: 4096 ballots of 64 over 1024 items (8.5 M points in all)
+BORDA_SWEEP = [(6, 20, 20), (3, 10, 50), (9, 15, 130), (1, 5, 5), (4, 12, 8), (2, 64, 300)]
+BORDA_LARGE = dict(r=4096, s=64, n=1024)
+# 2^22 permutations of 8: each item's points sum to about 1.9e7, past 2^24
+BORDA_PAST_2_24 = (1 << 22, 8)
+# shapes when phase train did not run: ten pointwise scores, eight ballots of eight
+FALLBACK_TRAIN = dict(scores=10, k=5, ballots=(8, 8))
 
 
 def say(phase: str, **kw) -> None:
@@ -541,12 +580,147 @@ def kernel_mlstm(device, flush, fam) -> dict:
                    "src/repro/kernels/mlstm_scan.py:73", "families", shapes)
 
 
-def phase_kernels(device, cont_shapes, fam) -> list:
+def topk_check(scores, k, block_n, what) -> None:
+    """The kernel against its plain version: values and indices exact."""
+    vals, idx = tk.topk_scores(scores, k, block_n=block_n)
+    torch.cuda.synchronize()
+    p_vals, p_idx = tk.topk_scores_plain(scores, k, block_n=block_n)
+    assert torch.equal(idx, p_idx), f"{what}: indices differ from the plain version"
+    # bit for bit, so that a NaN equals the same NaN
+    assert torch.equal(vals.view(torch.int32), p_vals.view(torch.int32)), \
+        f"{what}: values differ from the plain version"
+
+
+def kernel_topk(device, flush, path) -> dict:
+    """topk_scores against topk_scores_plain on the card: the sweep in fp32
+    and bf16, ties, all -inf (the padding quirk), NaN scores (one, a whole
+    tile, one in every tile); then timed on the scores of phase train's
+    pointwise query and at 2^20 scores, k 64."""
+    for i, (n, k, bn) in enumerate(TOPK_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            sc = randn(np.random.default_rng(70 + i), (n,), dtype, device)
+            topk_check(sc, k, bn, f"topk_scores {(n, k, bn)} {dtype}")
+    ties = torch.round(randn(np.random.default_rng(79), (3000,), torch.float32, device) * 4) / 4
+    topk_check(ties, 32, 256, "topk_scores ties")
+    quirk = torch.full((100,), -math.inf, device=device)
+    topk_check(quirk, 5, 64, "topk_scores all -inf")
+    assert tk.topk_scores(quirk, 5, block_n=64)[1].tolist() == [0, 0, 0, 0, 100]
+    # NaN ranks above every number, the lower index first (jnp.argmax's order)
+    nan_cases = {"one NaN": [77], "a whole tile of NaN": [5, *range(64, 128)],
+                 "NaN in every tile": list(range(0, 300, 50))}
+    for what, at in nan_cases.items():
+        sc = randn(np.random.default_rng(82), (300,), torch.float32, device)
+        sc[at] = math.nan
+        topk_check(sc, 8, 64, f"topk_scores {what}")
+        assert tk.topk_scores(sc, 8, block_n=64)[1].tolist()[:len(at)] == at[:8], what
+    say("kernels.sweep", kernel="topk_scores", shapes=2 * len(TOPK_SWEEP) + 2 + len(nan_cases),
+        values_and_indices_exact=True, padding_quirk_indices=[0, 0, 0, 0, 100],
+        nan_cases=list(nan_cases))
+
+    if path:
+        cases = [(path["tag"], path["scores"], path["k"])]
+    else:
+        sc = randn(np.random.default_rng(80), (FALLBACK_TRAIN["scores"],), torch.float32, device)
+        cases = [("fixed (phase train did not run)", sc, FALLBACK_TRAIN["k"])]
+    big = randn(np.random.default_rng(81), (TOPK_LARGE["n"],), torch.float32, device)
+    cases.append((f"large: {TOPK_LARGE['n']} scores", big, TOPK_LARGE["k"]))
+    shapes = []
+    for tag, sc, k in cases:
+        n = sc.shape[0]
+        topk_check(sc, k, 1024, f"topk_scores {tag}")
+        lib_v, _ = torch.topk(sc.float(), k)
+        assert torch.equal(lib_v, tk.topk_scores(sc, k)[0]), f"{tag}: torch.topk's values differ"
+        bound, by = tk.bound_ms(n, k, sc.element_size())
+        rec = dict(shape=f"{tag}: N{n} k{k} block_n 1024", dtype=dtype_name(sc.dtype),
+                   max_abs_err=0.0, ms=time_ms(lambda: tk.topk_scores(sc, k), flush),
+                   plain_ms=time_ms(lambda: tk.topk_scores_plain(sc, k), flush),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=time_ms(lambda: torch.topk(sc, k), flush))
+        say("kernels.full_width", kernel="topk_scores", **rec)
+        shapes.append(rec)
+    return summary("topk_scores", "src/repro_torch/kernels/csrc/topk_scores.cu",
+                   "src/repro/kernels/topk_scores.py:46", "train.ops", shapes)
+
+
+def borda_ballots(seed, r, s, n, device):
+    """tests/test_kernels.py's ballots: permutations cut to s, the first
+    ballot truncated with -1 pads."""
+    rng = np.random.default_rng(seed)
+    ballots = np.stack([rng.permutation(max(n, s))[:s] for _ in range(r)]).astype(np.int32)
+    if r > 1:
+        ballots[0, -2:] = -1
+    return torch.from_numpy(ballots).to(device)
+
+
+def borda_check(ballots, n, what) -> None:
+    """The kernel against its plain version and borda_matrix: exact."""
+    got = bc.borda_count(ballots, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bc.borda_count_plain(ballots, n)), f"{what}: differs from plain"
+    want = borda_matrix(np.where(ballots.cpu().numpy() < n, ballots.cpu().numpy(), -1), n)
+    assert got.cpu().numpy().tolist() == want.tolist(), f"{what}: differs from borda_matrix"
+
+
+def kernel_borda(device, flush, path) -> dict:
+    """borda_count against borda_count_plain on the card: the sweep; then
+    timed on phase train's ballots and on 4096 ballots of 64."""
+    for i, (r, s, n) in enumerate(BORDA_SWEEP):
+        borda_check(borda_ballots(90 + i, r, s, n, device), n, f"borda_count {(r, s, n)}")
+    # sums past 2^24, where fp32 adds stop being exact: the kernel's integer
+    # counts give the exact sum rounded once (the plain version's fp32
+    # einsum may differ in the last bit, reported, not held)
+    r, s = BORDA_PAST_2_24
+    gen = torch.Generator(device).manual_seed(97)
+    ballots = torch.rand((r, s), generator=gen, device=device).argsort(dim=1).int()
+    got = bc.borda_count(ballots, s)
+    exact = torch.zeros(s, dtype=torch.int64, device=device).index_add_(
+        0, ballots.reshape(-1).long(), torch.arange(s, 0, -1, device=device).repeat(r))
+    assert int(exact.max()) > 2 ** 24, exact.tolist()
+    assert torch.equal(got, exact.float()), f"borda_count past 2^24: {got} vs {exact}"
+    plain_equal = torch.equal(got, bc.borda_count_plain(ballots, s))
+    say("kernels.sweep", kernel="borda_count", shapes=len(BORDA_SWEEP) + 1, points_exact=True,
+        past_2_24=dict(ballots=[r, s], largest_sum=int(exact.max()),
+                       equals_exact_sum_rounded=True, equals_plain_fp32_einsum=plain_equal))
+
+    if path:
+        cases = [(path["tag"], path["ballots"], path["n_items"])]
+    else:
+        r, s = FALLBACK_TRAIN["ballots"]
+        cases = [("fixed (phase train did not run)", borda_ballots(98, r, s, s, device), s)]
+    big = BORDA_LARGE
+    cases.append((f"large: {big['r']} ballots of {big['s']}",
+                  borda_ballots(99, big["r"], big["s"], big["n"], device), big["n"]))
+    shapes = []
+    for tag, ballots, n in cases:
+        r, s = ballots.shape
+        borda_check(ballots, n, f"borda_count {tag}")
+        # the yardstick: one index_add_ over the valid slots, mask built outside
+        valid = (ballots >= 0) & (ballots < n)
+        ids = ballots[valid].long()
+        pts = torch.arange(s, 0, -1, dtype=torch.float32, device=device).expand(r, s)[valid]
+        lib = torch.zeros(n, device=device).index_add_(0, ids, pts)
+        assert torch.equal(lib, bc.borda_count(ballots, n)), f"{tag}: index_add_ differs"
+        bound, by = bc.bound_ms(r, s, n)
+        rec = dict(shape=f"{tag}: R{r} S{s} n_items {n}", dtype="int32", max_abs_err=0.0,
+                   ms=time_ms(lambda: bc.borda_count(ballots, n), flush),
+                   plain_ms=time_ms(lambda: bc.borda_count_plain(ballots, n), flush),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=time_ms(lambda: torch.zeros(n, device=device).index_add_(
+                       0, ids, pts), flush))
+        say("kernels.full_width", kernel="borda_count", **rec)
+        shapes.append(rec)
+    return summary("borda_count", "src/repro_torch/kernels/csrc/borda_count.cu",
+                   "src/repro/kernels/borda_count.py:49", "train.ops", shapes)
+
+
+def phase_kernels(device, cont_shapes, fam, train_path) -> list:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     return [kernel_paged(device, flush), kernel_flash(device, flush, cont_shapes),
             kernel_decode(device, flush), kernel_moe_gating(device, flush, fam.get("moe_gating")),
             kernel_ssm(device, flush, fam.get("ssm_scan")),
-            kernel_mlstm(device, flush, fam.get("mlstm_scan"))]
+            kernel_mlstm(device, flush, fam.get("mlstm_scan")),
+            kernel_topk(device, flush, train_path.get("topk_scores")),
+            kernel_borda(device, flush, train_path.get("borda_count"))]
 
 
 def phase_ops(device) -> dict:
@@ -946,6 +1120,296 @@ def phase_families(device, card, seed) -> tuple:
     return dict(launches), fam
 
 
+# --------------------------------------------------------- training (train)
+TRAIN_ARCH = "minicpm-2b"
+TRAIN = dict(batch=4, seq=512, steps=4)
+# the crash drill: full width, 2 of 40 layers (the whole state would be 27 GB
+# of checkpoint at every save), 4 steps, a checkpoint every 2, a crash after 3
+DRILL = dict(depth=2, steps=4, ckpt_every=2, crash_after=3)
+# the training example's query (examples/train_ranker_lm.py:55-63)
+SERVE_ITEMS = [f"item {i}" for i in range(10)]
+SERVE_QUERY = dict(criteria="numeric size", path="ext_pointwise", descending=True, limit=5)
+AUTO_SAMPLE = 8
+
+
+def train_config(steps, **kw) -> TrainConfig:
+    """examples/train_ranker_lm.py's settings (two microbatches, int8
+    error-feedback gradients, the WSD schedule and its warmup) but for the
+    peak rate: the example's 5e-3 suits its reduced model; at full width on
+    an H100 it took the loss from 11.7 to 115 in four steps, so the
+    optimizer's default 3e-4."""
+    return TrainConfig(steps=steps, log_every=0, grad_accum=2, compression=True,
+                       optim=OptimConfig(lr=3e-4, schedule="wsd",
+                                         warmup_steps=max(steps // 20, 5), total_steps=steps),
+                       **kw)
+
+
+def train_pipe(cfg, seed) -> DataPipeline:
+    return DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                                   global_batch=TRAIN["batch"], seed=seed))
+
+
+def seeded_lm(cfg, device, seed) -> LM:
+    return LM(cfg, device=device, generator=torch.Generator(device).manual_seed(seed))
+
+
+def release() -> None:
+    """Hand the memory of what the caller just deleted back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_gb(state) -> float:
+    return sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
+
+
+def train_full(device, card, seed) -> LM:
+    """minicpm-2b, all 40 layers, a few steps through ``Trainer``."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = seeded_lm(cfg, device, seed)
+    trainer = Trainer(lm, train_config(TRAIN["steps"]))
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # every leaf as it was, to count the entries the steps moved (5.4 GB; a
+    # bf16 entry whose update is under half its last bit does not move)
+    before = {path: leaf.detach().clone() for path, leaf in flatten_with_path(state["params"])}
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    say("train.model", card=card, arch=cfg.name, layers=cfg.decoder_layers(), d_model=cfg.d_model,
+        n_heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        params=sum(p.numel() for p in lm.parameters()), state_gb=state_gb(state),
+        init_seconds=init_s, batch=TRAIN["batch"], seq=TRAIN["seq"], grad_accum=2,
+        compression=True, schedule="wsd", remat=cfg.remat,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def on_step(step, rec):
+        say("train.step", step=step, loss=rec["loss"], lr=rec["lr"], grad_norm=rec["grad_norm"],
+            step_seconds=rec["dt"], tokens_per_s=tokens / rec["dt"],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    hist = trainer.run(state, iter(train_pipe(cfg, seed)), resume=False,
+                       on_step=on_step)["history"]
+    assert len(hist) == TRAIN["steps"]
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in hist), hist
+    moved = {path_str(path): float((before[path] != leaf.detach()).float().mean())
+             for path, leaf in flatten_with_path(state["params"])}
+    # LM.loss skips final_norm, as the reference's does: it gets no gradient
+    assert moved.pop("final_norm") == 0.0, "final_norm moved without a gradient"
+    assert all(v > 0 for v in moved.values()), moved
+    say("train.full", steps=len(hist), losses=[r["loss"] for r in hist],
+        grad_norms=[r["grad_norm"] for r in hist],
+        median_step_seconds=statistics.median(r["dt"] for r in hist[1:]),
+        tokens_per_step=tokens, share_of_entries_moved=moved,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del trainer, state, before
+    release()
+    return lm
+
+
+def crash_drill(device, seed) -> None:
+    """Full width, the depth cut to 2 layers: an uninterrupted run against
+    one that crashes after step 3 (its checkpoint is step 2's) and resumes
+    in a fresh ``Trainer`` over a freshly drawn model.  The resumed
+    parameters must equal the uninterrupted run's bit for bit (the contract
+    of the reference's tests/test_fault_tolerance.py:32)."""
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DRILL["depth"], pattern=(("attn", DRILL["depth"]),))
+    steps = DRILL["steps"]
+    lm = seeded_lm(cfg, device, seed)
+    tr = Trainer(lm, train_config(steps))
+    ref = tr.run(tr.init_state(), iter(train_pipe(cfg, seed)), resume=False)["history"]
+    want = [p.detach().cpu() for p in leaves(lm.param_tree())]
+    del tr, lm
+    release()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        kw = dict(ckpt_dir=ckpt_dir, ckpt_every=DRILL["ckpt_every"], ckpt_async=False)
+        lm = seeded_lm(cfg, device, seed)
+        tr = Trainer(lm, train_config(steps, **kw))
+        tr.injector.crash_at_step = DRILL["crash_after"]
+        t0 = time.perf_counter()
+        try:
+            tr.run(tr.init_state(), iter(train_pipe(cfg, seed)), resume=False)
+            raise AssertionError("the injected failure did not fire")
+        except SimulatedFailure:
+            crashed_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(ckpt_dir) for f in fs)
+        del tr, lm
+        release()
+        lm = seeded_lm(cfg, device, seed)            # a fresh process would draw anew
+        tr = Trainer(lm, train_config(steps, **kw))
+        t0 = time.perf_counter()
+        out = tr.run(tr.init_state(), iter(train_pipe(cfg, seed)), resume=True)["history"]
+        resumed_s = time.perf_counter() - t0
+        got = [p.detach().cpu() for p in leaves(lm.param_tree())]
+        del tr, lm
+        release()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert [r["step"] for r in out] == [3, 4], out
+    same_loss = [r["loss"] == ref[r["step"] - 1]["loss"] for r in out]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bitwise and all(same_loss), (same_loss, bitwise)
+    say("train.resume_drill", depth_cut=f"{DRILL['depth']} of {full.n_layers} layers",
+        width=f"d_model {cfg.d_model}, vocab {cfg.vocab_size}", steps=steps,
+        ckpt_every=DRILL["ckpt_every"], crashed_after_step=DRILL["crash_after"],
+        resumed_from_step=2, resumed_steps=[r["step"] for r in out],
+        losses_equal_uninterrupted=True, params_bitwise_equal=True, leaves=len(got),
+        checkpoint_gb=ckpt_bytes / 1e9, crashed_run_seconds=crashed_s,
+        resumed_run_seconds=resumed_s)
+
+
+def record_scores(captured: list):
+    """Keep the (keys, folded scores) the pointwise path sorts by (``del
+    pointwise_mod._stable_sort_by`` restores the module's own)."""
+    inner = pointwise_mod._stable_sort_by
+
+    def counted(keys, values):
+        captured.append((list(keys), list(values)))
+        return inner(keys, values)
+
+    pointwise_mod._stable_sort_by = counted
+    return inner
+
+
+def record_ballots(captured: list):
+    """Keep the ballots and universe of every Borda consensus the optimizer
+    takes, and the gold ranking it returned."""
+    inner = optimizer_mod.borda_consensus
+
+    def counted(ballots, universe):
+        gold = inner(ballots, universe)
+        captured.append(([list(b) for b in ballots], list(universe), list(gold)))
+        return gold
+
+    optimizer_mod.borda_consensus = counted
+    return inner
+
+
+def serve_trained(lm, device, card) -> tuple:
+    """The trained weights through ServeEngine -> ModelOracle ->
+    llm_order_by: the example's query, then the budget-aware optimizer with
+    Borda selection.  Returns what the two kernels take: the pointwise
+    scores with the path's top K, and the ballots with the gold ranking."""
+    eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=8, device=lm.device)
+    keys = as_keys(SERVE_ITEMS, list(range(len(SERVE_ITEMS))))
+
+    scores = []
+    inner = record_scores(scores)
+    t0 = time.perf_counter()
+    res, _ = llm_order_by(keys, SERVE_QUERY["criteria"], ModelOracle(eng),
+                          path=SERVE_QUERY["path"], descending=SERVE_QUERY["descending"],
+                          limit=SERVE_QUERY["limit"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pointwise_mod._stable_sort_by = inner
+    assert len(res.order) == SERVE_QUERY["limit"] and len(set(res.uids())) == SERVE_QUERY["limit"]
+    assert len(scores) == 1, len(scores)
+    say("train.serve.query", **SERVE_QUERY, order=res.uids(), n_calls=res.n_calls,
+        cost=res.cost, wall_seconds=wall)
+
+    # the budget-aware optimizer with Borda selection; a membership gate
+    # that recognised every sampled key would skip the pilots and so the
+    # Borda step, and fails the phase
+    ballots = []
+    inner = record_ballots(ballots)
+    t0 = time.perf_counter()
+    res2, rep = llm_order_by(keys, SERVE_QUERY["criteria"], ModelOracle(eng), descending=True,
+                             path="auto", strategy="borda", sample_size=AUTO_SAMPLE)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    optimizer_mod.borda_consensus = inner
+    assert rep.reason == "borda" and len(ballots) == 1, (rep.reason, rep.membership_rate,
+                                                         len(ballots))
+    assert sorted(res2.uids()) == list(range(len(SERVE_ITEMS))), res2.uids()
+    say("train.serve.auto", path="auto", strategy="borda", sample_size=AUTO_SAMPLE,
+        membership_rate=rep.membership_rate, chosen=rep.chosen.label,
+        reason=rep.reason, sample_scores=rep.sample_scores, order=res2.uids(),
+        n_calls=res2.n_calls, cost=res2.cost, wall_seconds=wall2, ballots=len(ballots[0][0]))
+    eng.clear_prefix_cache()
+    assert eng.pool.blocks_in_use == 0, eng.pool.blocks_in_use
+    say("train.serve", card=card, arch=lm.cfg.name, layers=lm.cfg.decoder_layers(),
+        stats=dict(vars(eng.stats)), peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return (keys, scores[0], res), ballots[0]
+
+
+def train_kernels(device, pointwise, borda) -> tuple:
+    """``ops.topk_scores`` on the pointwise query's scores and
+    ``ops.borda_count`` on the optimizer's ballots, each against its plain
+    version and the path's own result.  The queries sort in Python and take
+    the consensus in numpy, so these ``kernels.ops`` calls on what they
+    captured are the launches counted (as ``train.ops``): the counts are set
+    to 0 just before and read just after."""
+    keys, (sorted_keys, folded), res = pointwise
+    assert [k.uid for k in sorted_keys] == [k.uid for k in keys]
+    k = SERVE_QUERY["limit"]
+    # the path sorts ascending by -score (descending): undo the fold
+    scores = torch.tensor([-v for v in folded], dtype=torch.float32, device=device)
+    ballots_uids, universe, gold = borda
+    col = {u: i for i, u in enumerate(universe)}
+    assert len({len(b) for b in ballots_uids}) == 1, "ballots of unequal length"
+    ballots = torch.tensor([[col[u] for u in b] for b in ballots_uids], dtype=torch.int32,
+                           device=device)
+
+    reset_launches()                           # ---- the path starts here
+    vals, idx = ops.topk_scores(scores, k)
+    points = ops.borda_count(ballots, len(universe))
+    torch.cuda.synchronize()
+    launches = read_launches()                 # ---- and ends here
+    assert launches["topk_scores"] > 0 and launches["borda_count"] > 0, launches
+
+    p_vals, p_idx = tk.topk_scores_plain(scores, k)
+    assert torch.equal(vals, p_vals) and torch.equal(idx, p_idx), "topk: differs from plain"
+    want_vals = torch.sort(scores, descending=True, stable=True).values[:k]
+    assert torch.equal(vals, want_vals), "topk: values differ from the path's"
+    path_idx = [kk.uid for kk in res.order]
+    fifth_tied = bool((scores == vals[-1]).sum() > (vals == vals[-1]).sum())
+    if not fifth_tied:
+        assert idx.tolist() == path_idx, (idx.tolist(), path_idx)
+    assert torch.equal(points, bc.borda_count_plain(ballots, len(universe))), "borda: vs plain"
+    want_pts = borda_matrix(ballots.cpu().numpy(), len(universe))
+    assert points.cpu().numpy().tolist() == want_pts.tolist(), "borda: vs borda_matrix"
+    pts = points.tolist()
+    ranked = [universe[i] for i in sorted(range(len(universe)), key=lambda i: (-pts[i], universe[i]))]
+    assert ranked == gold, (ranked, gold)
+    say("train.kernels", launches={n: launches[n] for n in ("topk_scores", "borda_count")},
+        topk=dict(n=int(scores.shape[0]), k=k, values=vals.tolist(), indices=idx.tolist(),
+                  path_top_k=path_idx, indices_equal_path=idx.tolist() == path_idx,
+                  fifth_value_tied=fifth_tied),
+        borda=dict(ballots=list(ballots.shape), points=pts, gold=gold,
+                   order_equals_gold=True, points_equal_borda_matrix=True))
+    path = {"topk_scores": dict(scores=scores, k=k,
+                                tag=f"{TRAIN_ARCH} pointwise scores of {len(keys)} keys"),
+            "borda_count": dict(ballots=ballots, n_items=len(universe),
+                                tag=f"{TRAIN_ARCH} optimizer ballots over {len(universe)} keys")}
+    return launches, path
+
+
+def phase_train(device, card, seed) -> tuple:
+    """Train minicpm-2b whole, drill a crash and resume at depth 2, serve the
+    trained weights, and run topk_scores and borda_count on what serving
+    produced.  Returns those kernels' launches and their tensors."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = train_full(device, card, seed)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crash_drill(device, seed)
+    t_drill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pointwise, borda = serve_trained(lm, device, card)
+    t_serve = time.perf_counter() - t0
+    del lm
+    release()
+    launches, path = train_kernels(device, pointwise, borda)
+    say("train.done", train_seconds=t_train, drill_seconds=t_drill, serve_seconds=t_serve)
+    return launches, path
+
+
 # ------------------------------------------------------- serving path (PR 11)
 CRITERIA = "relevance to a question about the history of paged memory in operating systems"
 ITEMS = [f"passage {i}: " + "the quick brown fox jumps over the lazy dog " * (1 + i % 3)
@@ -1104,22 +1568,19 @@ def phase_llama(device, card, seed) -> None:
         drive(lm, card, max_new=32, pool_blocks=768, assert_tokens=strict, tag=f"llama.{dtype}")
 
 
-def phase_profile(device, card, seed) -> None:
-    """Not part of the default run: trace one generate of the kernel engine
-    at full width with torch.profiler and report the device's busy time, its
-    idle share of the untraced wall time, and the kernels by device time."""
+def traced(fn, card, tag, **extra) -> None:
+    """Run ``fn`` once untimed (warm-up), once on the host clock, once under
+    torch.profiler; report the device's busy time, its idle share of the
+    untraced wall time, and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
-    lm = LM(get_config("stablelm-1.6b"), device=device,
-            generator=torch.Generator(device).manual_seed(seed))
-    eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=32)
-    eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)            # warm up
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)
+    fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -1130,21 +1591,45 @@ def phase_profile(device, card, seed) -> None:
               if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:12]
-    say("profile", card=card, generate_wall_ms_untraced=wall_ms, device_busy_ms=busy_ms,
+    say(tag, card=card, wall_ms_untraced=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / wall_ms if busy_ms else None,
-        kernels=[dict(name=e.key[:80], calls=e.count, device_ms=dev_us(e) / 1e3) for e in top])
+        kernel_launches=sum(e.count for e in events),
+        kernels=[dict(name=e.key[:80], calls=e.count, device_ms=dev_us(e) / 1e3) for e in top],
+        **extra)
+
+
+def phase_profile(device, card, seed) -> None:
+    """Not part of the default run: trace one generate of the kernel engine
+    at stablelm-1.6b's full width, then one training step of the whole
+    minicpm-2b as phase train runs it."""
+    lm = seeded_lm(get_config("stablelm-1.6b"), device, seed)
+    eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=32)
+    traced(lambda: eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS), card, "profile")
+    del eng, lm
+    release()
+
+    cfg = get_config(TRAIN_ARCH)
+    lm = seeded_lm(cfg, device, seed)
+    trainer = Trainer(lm, train_config(3))
+    state = trainer.init_state()
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in train_pipe(cfg, seed).batch(0).items()}
+    traced(lambda: trainer.step(state, batch), card, "profile.train_step", arch=cfg.name,
+           tokens=TRAIN["batch"] * TRAIN["seq"], grad_accum=2, compression=True)
+    del trainer, state, lm
+    release()
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,families,kernels,ops,main,llama"
+DEFAULT_PHASES = "order_by,families,train,kernels,ops,main,llama"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
-                    help="comma-separated subset of order_by,families,kernels,ops,main,"
-                         "llama,profile")
+                    help="comma-separated subset of order_by,families,train,kernels,ops,"
+                         "main,llama,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1163,11 +1648,15 @@ def main(argv=None) -> int:
     launches_by_path = {}
     cont_shapes = FALLBACK_CONT
     fam = {}
+    train_path = {}
     if "order_by" in phases:
         launches_by_path["order_by"], cont_shapes = phase_order_by(device, card, args.seed)
     if "families" in phases:
         launches_by_path["families"], fam = phase_families(device, card, args.seed)
-    kernels = phase_kernels(device, cont_shapes, fam) if "kernels" in phases else None
+    if "train" in phases:
+        launches_by_path["train.ops"], train_path = phase_train(device, card, args.seed)
+    kernels = (phase_kernels(device, cont_shapes, fam, train_path) if "kernels" in phases
+               else None)
     if "ops" in phases:
         launches_by_path["kernels.ops"] = phase_ops(device)
     if "main" in phases:
@@ -1176,18 +1665,21 @@ def main(argv=None) -> int:
         phase_llama(device, card, args.seed)
     if "profile" in phases:
         phase_profile(device, card, args.seed)
-    if kernels is not None and {"order_by", "families", "ops"} <= phases:
+    if kernels is not None and {"order_by", "families", "train", "ops"} <= phases:
         for k in kernels:
             # ``launches``: the count on the path that reaches the kernel
             # (order_by for the paged kernel, the ops path for flash and
             # decode, families for the MoE / SSM / mLSTM kernels), each path
-            # counted from 0 just before it ran
+            # counted from 0 just before it ran.  train.ops counts top-k and
+            # Borda as ``kernels.ops`` calls on the tensors the train path's
+            # queries produced: the queries themselves sort in Python and
+            # take the Borda consensus in numpy, as the reference's do
             k["launches_by_path"] = {p: n[k["name"]] for p, n in launches_by_path.items()}
             k["launches"] = k["launches_by_path"][k["path"]]
             assert k["launches"] > 0, f"{k['name']} never launched on {k['path']}"
     elif kernels is not None:
-        say("note", text="phases order_by, families and ops did not all run: no launch "
-                         "counts, so no kernels line")
+        say("note", text="phases order_by, families, train and ops did not all run: no "
+                         "launch counts, so no kernels line")
         kernels = None
     say("done", seconds=time.perf_counter() - t_start)
     if kernels is not None:

@@ -3,8 +3,8 @@
 Counterpart of ``src/repro/configs/registry.py``.  Lists only the
 architectures the port can run; the reference's other ids raise
 ``NotImplementedError`` naming the slice that brings them.  ``ladder()``
-(the model-cascade rung order) comes with the slice of the remaining
-configs: the port's ``core/`` needs none of it.
+(the model-cascade rung order) comes with ``phi4-mini-3.8b`` and
+``attn_impl="qchunk"``: the port's ``core/`` needs none of it.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from importlib import import_module
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1p6b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
@@ -22,8 +23,6 @@ _MODULES = {
 }
 
 _LATER = {
-    "minicpm-2b": "the slice of the remaining pure-attn configs and "
-                  "attn_impl='qchunk' (needs no new block kind)",
     "phi4-mini-3.8b": "the slice of the remaining pure-attn configs and "
                       "attn_impl='qchunk' (needs no new block kind)",
     "seamless-m4t-medium": "the encoder-decoder slice",

@@ -1,4 +1,5 @@
-"""Load the reference's parameters into the port's ``LM``.
+"""Load the reference's parameters into the port's ``LM``, and carry an
+optimizer state across.
 
 No counterpart in ``src/repro/``.  The caller turns the reference's pytree
 into numpy arrays; nothing here imports JAX.  Names, ``(d_in, d_out)`` layouts
@@ -11,6 +12,7 @@ import torch
 
 from .models.config import ModelConfig
 from .models.model import LM, _flatten
+from .training.tree import map_tree
 
 
 def to_tensor(arr, device=None, dtype=None) -> torch.Tensor:
@@ -66,3 +68,18 @@ def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
         for name, arr in flat.items():
             load(dst[name], arr, keep_dtype=name in FP32_PARAMS)
     return lm
+
+
+def tree_from_jax(tree, device=None):
+    """A reference pytree of numpy arrays (nested dicts and lists) as the
+    same tree of tensors, bit-exact (bf16 through its bit pattern)."""
+    return map_tree(lambda a: to_tensor(a, device), tree)
+
+
+def opt_state_from_jax(opt, device=None) -> dict:
+    """The reference's optimizer state ``{"m", "v", "step"}`` (numpy arrays)
+    as the port's: fp32 moments on ``device`` in the parameters' tree (the
+    reference's tree is the same as ``LM.param_tree()``'s), the step a 0-dim
+    int32 CPU tensor."""
+    return {"m": tree_from_jax(opt["m"], device), "v": tree_from_jax(opt["v"], device),
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)}

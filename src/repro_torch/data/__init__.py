@@ -1,5 +1,6 @@
-"""Counterpart of ``src/repro/data/``.  Ported: the byte tokenizer.  The
-training ``DataPipeline`` comes with the training slice."""
+"""Counterpart of ``src/repro/data/``: the byte tokenizer and the training
+``DataPipeline``."""
+from .pipeline import DataConfig, DataPipeline
 from .tokenizer import BOS, EOS, PAD, ByteTokenizer
 
-__all__ = ["BOS", "EOS", "PAD", "ByteTokenizer"]
+__all__ = ["BOS", "EOS", "PAD", "ByteTokenizer", "DataConfig", "DataPipeline"]

@@ -1,8 +1,9 @@
 """Public wrappers of the package's kernels.
 
-Counterpart of ``src/repro/kernels/ops.py``.  Ported so far:
+Counterpart of ``src/repro/kernels/ops.py``, every entry point ported:
 ``paged_decode_attention``, ``flash_attention``, ``decode_attention``,
-``moe_gating``, ``ssm_scan`` and ``mlstm_scan``.
+``moe_gating``, ``ssm_scan``, ``mlstm_scan``, ``topk_scores`` and
+``borda_count``.
 The dispatch is by the tensor's device alone: a CUDA tensor goes to the CUDA
 kernel or raises, a CPU tensor takes the plain PyTorch version.  The
 reference's ``REPRO_FORCE_REF`` / ``REPRO_FORCE_INTERPRET`` knobs have no
@@ -10,17 +11,21 @@ counterpart here.  As in the reference, the model stack calls only
 ``paged_decode_attention`` (through ``ServeEngine(paged_kernel=...)``); the
 others are reached through these entry points, while the model's MoE, SSM
 and mLSTM blocks compute the same functions in plain PyTorch, as the
-reference's do in XLA.  ``topk_scores`` and ``borda_count`` come with the
-training slice.
+reference's do in XLA.  ``topk_scores`` (LIMIT-K over pointwise scores)
+and ``borda_count`` (the optimizer's consensus points) are reached through
+these entry points alone, as in the reference, whose ``core/`` ranks in
+numpy.
 """
 from __future__ import annotations
 
+from .borda_count import borda_count as _borda
 from .decode_attention import decode_attention as _decode
 from .flash_attention import flash_attention as _flash
 from .mlstm_scan import mlstm_scan as _mlstm
 from .moe_gating import moe_gating as _moe_gate
 from .paged_attention import paged_attention as _paged
 from .ssm_scan import ssm_scan as _ssm
+from .topk_scores import topk_scores as _topk
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -62,14 +67,14 @@ def moe_gating(logits, k: int, *, block_t: int = 256):
     return _moe_gate(logits, k, block_t=block_t)
 
 
-def _not_ported(name: str, slice_name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"repro_torch.kernels.ops.{name} is not ported yet: it comes "
-            f"with {slice_name}")
-    fn.__name__ = name
-    return fn
+def topk_scores(scores, k: int, *, block_n: int = 1024):
+    """Two-stage top-k of scores (N,): per-tile candidates, then the top k of
+    those.  Returns (values (k,) fp32, indices (k,) int32), largest first."""
+    return _topk(scores, k, block_n=block_n)
 
 
-topk_scores = _not_ported("topk_scores", "the training slice")
-borda_count = _not_ported("borda_count", "the training slice")
+def borda_count(ballots, n_items: int, *, block_items: int = 128,
+                block_ballots: int = 8):
+    """Ballots (R, S) int32 (-1 pads) -> Borda points (n_items,) fp32."""
+    return _borda(ballots, n_items, block_items=block_items,
+                  block_ballots=block_ballots)

@@ -1,3 +1,3 @@
-"""Launchers of the port.  Counterpart of ``src/repro/launch/``: ``serve``
-(single device) is ported; the mesh, dry-run, roofline, report, pricing and
-train launchers come with the distributed and training slices."""
+"""Launchers of the port.  Counterpart of ``src/repro/launch/``: ``serve`` and
+``train`` (single device) are ported; the mesh, dry-run, roofline, report and
+pricing launchers come with the distributed slice."""

@@ -8,8 +8,8 @@ parallel with Mamba SSM heads, + FFN), ``mlstm`` and ``slstm`` (xLSTM), in
 modes ``train``, ``prefill`` and ``decode``; ``prefill_cont`` and
 ``decode_paged`` for ``attn`` only, as in the reference.  Kinds ``enc`` and
 ``xdec`` and ``attn_impl="qchunk"`` raise ``NotImplementedError`` naming the
-slice that brings them.  Activation rematerialisation (``cfg.remat``)
-belongs to training and is not read here.
+slice that brings them.  In mode ``train`` with gradients on, each layer
+is rematerialised as ``cfg.remat`` says (:func:`apply_stack`).
 
 A stack of ``n`` layers keeps its parameters stacked with a leading layer dim,
 as the reference does; where the reference scans over that dim, the port runs
@@ -30,6 +30,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (KVCache, PagedKV, apply_rope, causal_mask, dtype_of,
@@ -108,6 +109,17 @@ def layer_params(stack: dict, i: int) -> dict:
     """View of layer ``i`` of a stacked-parameter dict (no copy)."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in stack.items()}
+
+
+def unstack_layers(stack: dict, n: int) -> list[dict]:
+    """Views of the ``n`` layers of a stacked-parameter dict, from one
+    ``unbind`` per leaf.  Under autograd, :func:`layer_params` would give each
+    layer's backward a zero-filled gradient of the whole stack to add up, n
+    passes over every stacked leaf; ``unbind``'s backward stacks the n layer
+    gradients once."""
+    cols = {k: (unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in stack.items()}
+    return [{k: col[i] for k, col in cols.items()} for i in range(n)]
 
 
 # ------------------------------------------------------------------- caches
@@ -343,12 +355,26 @@ def apply_stack(kind: str, cfg: ModelConfig, stack, x, ctx, cache=None,
     ``prefill`` and ``prefill_cont`` a newly stacked cache, for ``decode``
     and ``decode_paged`` the cache passed in, updated in place, for
     ``train`` None.
+
+    Rematerialisation, the reference's ``cfg.remat`` (``blocks.py:396-402``):
+    in mode ``train`` with gradients on, ``"full"`` keeps only each layer's
+    input and runs the layer again in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant).  ``"dots"`` (keep the
+    weight products' outputs, JAX's ``checkpoint_dots_with_no_batch_dims``)
+    has no PyTorch policy of the same reach and maps to ``"full"``: the
+    values and gradients are the same either way, only the memory held
+    between the passes differs.  ``"none"`` keeps every activation.
     """
     n = stack["norm1"].shape[0]
+    remat = mode == "train" and torch.is_grad_enabled() and cfg.remat in ("full", "dots")
     emitted = []
-    for i in range(n):
+    for i, p in enumerate(unstack_layers(stack, n)):
+        if remat:
+            x = checkpoint(lambda h, p=p: apply_block(kind, cfg, p, h, ctx, None, mode)[0],
+                           x, use_reentrant=False)
+            continue
         c = map_cache(lambda leaf: leaf[i], cache) if cache is not None else None
-        x, c2 = apply_block(kind, cfg, layer_params(stack, i), x, ctx, c, mode)
+        x, c2 = apply_block(kind, cfg, p, x, ctx, c, mode)
         if mode in ("prefill", "prefill_cont"):
             emitted.append(c2)
         elif mode == "decode":

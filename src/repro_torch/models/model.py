@@ -10,13 +10,14 @@ leading layer dim of each stack, so loading converted weights is a copy
     logits, caches = lm.prefill(batch)          # serve: context ingestion
     logits, caches = lm.decode_step(caches, token, position)
 
-Ported: ``forward``, ``init_caches``, ``prefill``, ``prefill_cont``,
-``decode_step``, ``decode_step_paged`` (``impl="dense" | "kernel"``) and
-``score_hidden`` for token-input decoder-only stacks of every block kind but
-``enc`` / ``xdec`` (the grouped patterns of Hymba and xLSTM included;
-``prefill_cont`` and ``decode_step_paged`` for pure ``attn`` stacks, as in
-the reference).  Left for later slices, each raising
-``NotImplementedError``: ``loss`` (training slice), the encoder
+Ported: ``forward``, ``loss``, ``init_caches``, ``prefill``,
+``prefill_cont``, ``decode_step``, ``decode_step_paged`` (``impl="dense" |
+"kernel"``) and ``score_hidden`` for token-input decoder-only stacks of every
+block kind but ``enc`` / ``xdec`` (the grouped patterns of Hymba and xLSTM
+included; ``prefill_cont`` and ``decode_step_paged`` for pure ``attn``
+stacks, as in the reference).  :meth:`LM.param_tree` gives the parameters
+in the reference's nested pytree, which the trainer and checkpoints walk.
+Left for later slices, each raising ``NotImplementedError``: the encoder
 (``enc_pattern``, encoder-decoder slice), ``embeds`` batches and M-RoPE.
 
 Batch dict keys: ``tokens`` (B, S) integer ids; ``positions`` (B, S) optional,
@@ -37,6 +38,7 @@ from .config import ModelConfig
 from .layers import dtype_of, rms_norm, rope_angles
 
 NESTED = ("ffn", "moe", "ssm")
+LOSS_CHUNK = 128          # the reference's sequence chunk of the loss
 
 
 def _flatten(stack: dict) -> dict:
@@ -102,6 +104,16 @@ class LM(nn.Module):
         """Stack ``i``'s parameters in the reference's nested layout."""
         return _nest(self.stacks[i])
 
+    def param_tree(self) -> dict:
+        """Every parameter (the live tensors) in the reference's pytree:
+        ``embed``, ``final_norm``, ``stacks`` (a list of nested dicts) and,
+        untied, ``lm_head``."""
+        tree = {"embed": self.embed, "final_norm": self.final_norm,
+                "stacks": [self.stack_params(i) for i in range(len(self.stacks))]}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
     # ------------------------------------------------------------- embedding
     def _embed_in(self, batch) -> torch.Tensor:
         if batch.get("embeds") is not None:
@@ -159,8 +171,39 @@ class LM(nn.Module):
         return x, (new_caches if mode != "train" else None)
 
     def loss(self, batch):
-        raise NotImplementedError(
-            "LM.loss is not ported yet: it comes with the training slice")
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S), as the
+        reference computes it: the hidden states of positions [0, S-1)
+        against the tokens of [1, S), in chunks of ``LOSS_CHUNK`` positions
+        and a remainder chunk, fp32 logits through the (tied) head times
+        ``logit_scale``.  Like the reference it skips ``final_norm``.
+        Returns ``(loss, {"loss", "tokens"})``, a scalar fp32 loss."""
+        cfg = self.cfg
+        x, _ = self.forward(batch, mode="train")
+        tokens = batch["tokens"].long()
+        b, s = tokens.shape
+        inputs_h, targets = x[:, :-1], tokens[:, 1:]
+        sl = s - 1
+        chunk = min(LOSS_CHUNK, sl)
+        n_chunks = sl // chunk
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+
+        def ce(h, t):
+            logits = (h @ head).float() * cfg.logit_scale
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, t[..., None])[..., 0]
+            return (logz - gold).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n_chunks):
+            sl_i = slice(i * chunk, (i + 1) * chunk)
+            total = total + ce(inputs_h[:, sl_i], targets[:, sl_i])
+        if sl - n_chunks * chunk:
+            total = total + ce(inputs_h[:, n_chunks * chunk:],
+                               targets[:, n_chunks * chunk:])
+        ntok = b * sl
+        loss = total / ntok
+        return loss, {"loss": loss,
+                      "tokens": torch.tensor(float(ntok), device=x.device)}
 
     # ------------------------------------------------------------- serving
     def init_caches(self, batch_size: int, cache_len: int, enc_len: int = 0):

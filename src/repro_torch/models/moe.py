@@ -1,7 +1,7 @@
 """Top-k MoE FFN (Mixtral-style) with sort-based, capacity-bounded dispatch.
 
 Counterpart of ``src/repro/models/moe.py`` (``init_moe_params``,
-``moe_ffn``).  Tokens are routed with a stable sort over their expert
+``moe_ffn``, ``router_aux_loss``).  Tokens are routed with a stable sort over their expert
 assignments plus scatter and gather, not a (T, E, C) one-hot dispatch
 product.  Each expert takes at most ``capacity`` token slots, ranked in
 row-major ``(token, choice)`` order across the whole batch; a slot over
@@ -10,8 +10,8 @@ row's output depends on its batch-mates, as in the reference.
 
 Ties in the router logits go to the lower expert index, as ``lax.top_k``
 and the Pallas gating kernel decide them (``torch.topk`` promises no order
-on ties): :func:`route` sorts stably.  ``router_aux_loss`` and
-``moe_ffn_sharded`` come with the training and distributed slices.
+on ties): :func:`route` sorts stably.  ``moe_ffn_sharded`` comes with the
+distributed slice.
 """
 from __future__ import annotations
 
@@ -119,6 +119,13 @@ def moe_ffn_sharded(*args, **kwargs):
         "slice")
 
 
-def router_aux_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "router_aux_loss is not ported yet: it comes with the training slice")
+def router_aux_loss(p, x, spec: MoESpec) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): ``E * sum(f_e * p_e)``,
+    with ``f_e`` the share of tokens whose top-1 expert is e (the lower
+    index on a tie) and ``p_e`` the mean router probability of e."""
+    d = x.shape[-1]
+    logits = (x.reshape(-1, d) @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top1 = logits.argmax(dim=-1)
+    frac = F.one_hot(top1, spec.n_experts).float().mean(dim=0)
+    return spec.n_experts * torch.sum(frac * probs.mean(dim=0))

@@ -83,13 +83,13 @@ def pick_chunk(s: int, chunk: int) -> int:
 
 def _inclusive_scan(da, dbx):
     """Compose (decay, input) pairs along dim 1: returns (A_t, B_t) with
-    h_t = A_t h_0 + B_t.  Log-depth, in place on fresh copies."""
-    a, b = da.clone(), dbx.clone()
+    h_t = A_t h_0 + B_t.  Log-depth; each level is built out of place (the
+    products of a level keep the tensors of the level before for autograd)."""
+    a, b = da, dbx
     t, off = a.shape[1], 1
     while off < t:
-        b_prev, a_prev = b[:, :-off].clone(), a[:, :-off].clone()
-        b[:, off:] += a[:, off:] * b_prev
-        a[:, off:] *= a_prev
+        b = torch.cat([b[:, :off], b[:, off:] + a[:, off:] * b[:, :-off]], dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return a, b
 

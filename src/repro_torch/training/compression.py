@@ -1,0 +1,78 @@
+"""Int8 error-feedback gradient compression (distributed-optimization trick).
+
+Counterpart of ``src/repro/training/compression.py``.  Gradients are
+quantised to int8 with one fp32 scale per leaf; the quantisation residual is
+kept in an fp32 error state and added back the next step (Karimireddy et al.
+'19).  :func:`compress_tree` / :func:`decompress_tree` /
+:func:`compressed_grads` are the reference's pure transforms, equal to it in
+fp32.  :func:`compress_in_place` is the same arithmetic leaf by leaf with the
+error state updated in place and each gradient replaced as it goes, which
+the ``Trainer`` uses: at minicpm-2b's size a second error state or a second
+set of fp32 gradients would be 11 GB each.  ``ef_allreduce`` takes a mesh
+and comes with the distributed slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from .tree import leaves, map_tree, unflatten
+
+f32 = torch.float32
+
+
+def init_error_state(params):
+    return map_tree(lambda p: torch.zeros(p.shape, dtype=f32, device=p.device), params)
+
+
+def _quantize_(gf):
+    """gf (fp32, the gradient plus the old error) is overwritten with the new
+    error.  Returns (q int8, scale fp32 0-dim, the dequantised gradient)."""
+    scale = torch.clamp(gf.abs().max(), min=1e-12) / torch.full((), 127.0, dtype=f32,
+                                                                device=gf.device)
+    deq = torch.round(gf / scale).clamp_(-127, 127)
+    q = deq.to(torch.int8)
+    torch.mul(q, scale, out=deq)
+    gf.sub_(deq)
+    return q, scale, deq
+
+
+def compress_leaf(g, err):
+    """Returns (q int8, scale fp32 scalar, new_err)."""
+    gf = g.float() + err
+    q, scale, _ = _quantize_(gf)
+    return q, scale, gf
+
+
+def compress_tree(grads, err_state):
+    out = [compress_leaf(g, e) for g, e in zip(leaves(grads), leaves(err_state))]
+    return tuple(unflatten(grads, [o[i] for o in out]) for i in range(3))
+
+
+def decompress_tree(qs, scales, like=None):
+    out = map_tree(lambda q, s: q.float() * s, qs, scales)
+    if like is not None:
+        out = map_tree(lambda o, ref: o.to(ref.dtype), out, like)
+    return out
+
+
+def compressed_grads(grads, err_state):
+    """grads -> (dequantized grads, new error state): the train-loop hook."""
+    qs, scales, errs = compress_tree(grads, err_state)
+    return decompress_tree(qs, scales, like=grads), errs
+
+
+@torch.no_grad()
+def compress_in_place(grads: list, errs: list) -> None:
+    """:func:`compressed_grads` on the leaf lists of a gradient tree and its
+    error state: ``errs[i]`` becomes the new error in place and ``grads[i]``
+    is replaced by the dequantised gradient in its own dtype."""
+    for i, (g, e) in enumerate(zip(grads, errs)):
+        e.add_(g)                          # g in fp32 + err
+        grads[i] = _quantize_(e)[2].to(g.dtype)
+        del g
+
+
+def ef_allreduce(*args, **kwargs):
+    raise NotImplementedError(
+        "compression.ef_allreduce is not ported yet: it takes a mesh and comes "
+        "with the distributed slice")

@@ -260,8 +260,9 @@ def test_wrappers_have_no_fallback_from_the_kernel(module):
 
 def test_kernel_sources_are_built_together():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["decode_attention", "flash_attention", "mlstm_scan",
-                                "moe_gating", "paged_attention", "ssm_scan"]
+    assert _build.sources() == ["borda_count", "decode_attention", "flash_attention",
+                                "mlstm_scan", "moe_gating", "paged_attention", "ssm_scan",
+                                "topk_scores"]
 
 
 # ------------------------------------------------------------------ bounds

@@ -187,8 +187,13 @@ def test_moe_route_breaks_ties_to_the_lower_expert():
 
 
 def test_unported_moe_paths_raise_by_name():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TMOE.router_aux_loss()
+    # router_aux_loss came with the training slice (held against the
+    # reference in test_torch_training.py); the sharded FFN still raises
+    cfg = get_reduced("mixtral-8x7b")
+    p = TB.init_block(torch.Generator().manual_seed(0), "moe", cfg, "cpu")["moe"]
+    aux = TMOE.router_aux_loss(p, torch.ones((1, 4, cfg.d_model), dtype=p["router"].dtype),
+                               cfg.moe)
+    assert aux.dim() == 0 and torch.isfinite(aux)
     with pytest.raises(NotImplementedError, match="distributed slice"):
         TMOE.moe_ffn_sharded()
 

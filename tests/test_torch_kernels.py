@@ -214,10 +214,15 @@ def _meta_args(name):
         return t(16, 8), 2
     if name == "ssm_scan":
         return t(1, 64, 32), t(1, 64, 32), t(1, 64, 16), t(1, 64, 16), t(32, 16)
+    if name == "topk_scores":
+        return t(64), 4
+    if name == "borda_count":
+        return t(4, 8, dtype=torch.int32), 8
     return t(1, 2, 64, 16), t(1, 2, 64, 16), t(1, 2, 64, 32), t(1, 2, 64), t(1, 2, 64)
 
 
-PORTED = ("flash_attention", "decode_attention", "moe_gating", "ssm_scan", "mlstm_scan")
+PORTED = ("flash_attention", "decode_attention", "moe_gating", "ssm_scan", "mlstm_scan",
+          "topk_scores", "borda_count")
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention", "moe_gating",
@@ -226,8 +231,9 @@ def test_unported_kernels_raise_by_name(name):
     """An entry point that cannot run raises an error naming its kernel: the
     unported ones always, the ported ones (flash and decode attention since
     the scheduler/core slice; MoE gating, the SSM scan and the mLSTM scan
-    since the MoE/Hymba/xLSTM slice) on a device that has neither a kernel
-    nor the plain version."""
+    since the MoE/Hymba/xLSTM slice; top-k scores and Borda count since the
+    training slice, so that now every one is ported) on a device that has
+    neither a kernel nor the plain version."""
     if name in PORTED:
         with pytest.raises(RuntimeError, match=name):
             getattr(ops, name)(*_meta_args(name))

@@ -282,8 +282,10 @@ def test_qchunk_and_unported_model_features_raise():
     lm = LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="qchunk"), torch.inference_mode():
         lm.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="training"):
-        lm.loss({})
+    # LM.loss came with the training slice: a finite scalar on a reduced batch
+    loss, aux = LM(get_reduced("llama3-8b"), device="cpu").loss(
+        {"tokens": torch.zeros((2, 5), dtype=torch.int32)})
+    assert loss.dim() == 0 and torch.isfinite(loss) and float(aux["tokens"]) == 8
     with pytest.raises(NotImplementedError, match="M-RoPE"):
         LM(dataclasses.replace(get_reduced("llama3-8b"), mrope_sections=(2, 3, 3)),
            device="cpu")

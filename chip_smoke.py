@@ -114,6 +114,13 @@ FLASH_SWEEP = [(2, 4, 2, 128, 64, 0), (1, 4, 4, 256, 32, 0), (2, 8, 2, 128, 64, 
                (1, 2, 1, 96, 64, 32), (1, 2, 2, 160, 128, 0)]
 # (b, h, kv, sq, sk, hd): its prepended-KV sweep (q_offset = sk - sq)
 FLASH_PREPENDED = [(2, 4, 2, 64, 192, 64), (1, 4, 4, 96, 256, 32), (1, 2, 1, 32, 96, 64)]
+# (b, h, kv, sq, sk, hd, q_offset, window, causal): the tensor-core path's
+# edges: Sq and Sk off the 64-row and 64-key tiles, a window smaller than a
+# tile, q_offset off the tile, hd 32 and 128, G 4, a window without causal
+FLASH_EDGES = [(1, 4, 2, 100, 100, 64, 0, 0, True), (2, 8, 2, 77, 200, 128, 123, 0, True),
+               (1, 4, 4, 300, 300, 64, 0, 17, True), (2, 4, 1, 90, 127, 32, 37, 0, True),
+               (1, 8, 2, 129, 193, 128, 64, 70, True), (1, 4, 1, 65, 65, 32, 0, 5, True),
+               (1, 4, 2, 70, 150, 64, 0, 40, False), (1, 2, 2, 1, 333, 128, 332, 0, True)]
 # (b, h, kv, s, hd, fill): its decode sweep
 DECODE_SWEEP = [(2, 8, 2, 256, 64, 256), (1, 4, 4, 128, 128, 100), (2, 4, 1, 96, 64, 50)]
 # full-width attention shapes: stablelm-1.6b (G 1) and llama3-8b (G 4)
@@ -331,7 +338,17 @@ def kernel_flash(device, flush, cont_shapes) -> dict:
             check_close(got, mono, dtype, what + " vs monolithic suffix", ATT_TOL)
             bitwise &= bool(torch.equal(got, mono))
             worst[dtype] = max(worst[dtype], err)
-    say("kernels.sweep", kernel="flash_attention", shapes=len(FLASH_SWEEP) + len(FLASH_PREPENDED),
+    for i, (b, h, kv, sq, sk, hd, off, win, causal) in enumerate(FLASH_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(200 + i, b, h, kv, sq, sk, hd, dtype, device)
+            kw = dict(causal=causal, window=win, q_offset=off)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_close(got, fa.flash_attention_plain(q, k, v, **kw), dtype,
+                              f"flash_attention edge {FLASH_EDGES[i]} {dtype}", ATT_TOL)
+            worst[dtype] = max(worst[dtype], err)
+    say("kernels.sweep", kernel="flash_attention",
+        shapes=len(FLASH_SWEEP) + len(FLASH_PREPENDED) + len(FLASH_EDGES),
         max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
         tol_fp32=ATT_TOL[torch.float32], tol_bf16=ATT_TOL[torch.bfloat16],
         prepended_equals_monolithic_suffix_bitwise=bitwise)
@@ -591,10 +608,36 @@ def topk_check(scores, k, block_n, what) -> None:
         f"{what}: values differ from the plain version"
 
 
+def topk_hard_cases(device) -> dict:
+    """name -> (scores, k, block_n): inputs that break a selection by ranks
+    or by tiles, each held exactly against the plain version."""
+    rng = np.random.default_rng(83)
+    pick = lambda m, c: torch.from_numpy(rng.choice(m, c, replace=False)).to(device)  # noqa: E731
+    n = TOPK_LARGE["n"]
+    three = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)).to(device)
+    # 40 fives, then the 64th largest is one of 50 fours over 512 tiles
+    tied = -randn(rng, (1 << 16,), torch.float32, device).abs()
+    tied[pick(1 << 16, 90)] = torch.tensor([5.0] * 40 + [4.0] * 50, device=device)
+    at_neg = torch.full((1000,), -math.inf, device=device)
+    at_neg[pick(1000, 30)] = tk.NEG_INF
+    at_neg[pick(1000, 5)] = 1.0
+    few = torch.full((5000,), -math.inf, device=device)
+    few[pick(5000, 7)] = randn(rng, (7,), torch.float32, device)
+    big_k = randn(rng, (1 << 17,), torch.float32, device)
+    bf16 = randn(rng, (n,), torch.bfloat16, device)      # bf16 holds many ties
+    return {"2^20 scores of 3 values": (three, TOPK_LARGE["k"], 1024),
+            "the k-th value tied 50 times across 512 tiles": (tied, 64, 128),
+            "scores of exactly -3e38 among -inf": (at_neg, 16, 64),
+            "7 finite scores over 20 tiles, k 32": (few, 32, 256),
+            "k MAX_K, block_n MAX_BLOCK_N": (big_k, tk.MAX_K, tk.MAX_BLOCK_N),
+            "2^20 bf16 scores": (bf16, TOPK_LARGE["k"], 1024)}
+
+
 def kernel_topk(device, flush, path) -> dict:
     """topk_scores against topk_scores_plain on the card: the sweep in fp32
     and bf16, ties, all -inf (the padding quirk), NaN scores (one, a whole
-    tile, one in every tile); then timed on the scores of phase train's
+    tile, one in every tile), the hard cases of :func:`topk_hard_cases`;
+    then timed on the scores of phase train's
     pointwise query and at 2^20 scores, k 64."""
     for i, (n, k, bn) in enumerate(TOPK_SWEEP):
         for dtype in (torch.float32, torch.bfloat16):
@@ -613,9 +656,13 @@ def kernel_topk(device, flush, path) -> dict:
         sc[at] = math.nan
         topk_check(sc, 8, 64, f"topk_scores {what}")
         assert tk.topk_scores(sc, 8, block_n=64)[1].tolist()[:len(at)] == at[:8], what
-    say("kernels.sweep", kernel="topk_scores", shapes=2 * len(TOPK_SWEEP) + 2 + len(nan_cases),
+    hard = topk_hard_cases(device)
+    for what, (sc, k, bn) in hard.items():
+        topk_check(sc, k, bn, f"topk_scores {what}")
+    say("kernels.sweep", kernel="topk_scores",
+        shapes=2 * len(TOPK_SWEEP) + 2 + len(nan_cases) + len(hard),
         values_and_indices_exact=True, padding_quirk_indices=[0, 0, 0, 0, 100],
-        nan_cases=list(nan_cases))
+        nan_cases=list(nan_cases), hard_cases=list(hard))
 
     if path:
         cases = [(path["tag"], path["scores"], path["k"])]
@@ -1599,9 +1646,20 @@ def traced(fn, card, tag, **extra) -> None:
 
 
 def phase_profile(device, card, seed) -> None:
-    """Not part of the default run: trace one generate of the kernel engine
-    at stablelm-1.6b's full width, then one training step of the whole
-    minicpm-2b as phase train runs it."""
+    """Not part of the default run: trace flash attention and top-k at their
+    large timed shapes, one generate of the kernel engine at stablelm-1.6b's
+    full width, then one training step of the whole minicpm-2b as phase
+    train runs it."""
+    s = FLASH_MONOLITHIC
+    for arch, d in FULL.items():
+        q, k, v = flash_inputs(13, s["b"], d["h"], d["kv"], s["sq"], s["sk"], d["hd"],
+                               torch.bfloat16, device)
+        traced(lambda: fa.flash_attention(q, k, v, causal=True), card,
+               "profile.flash_attention", arch=arch, dtype="bfloat16", seq=s["sq"])
+    big = randn(np.random.default_rng(81), (TOPK_LARGE["n"],), torch.float32, device)
+    traced(lambda: tk.topk_scores(big, TOPK_LARGE["k"]), card, "profile.topk_scores",
+           n=TOPK_LARGE["n"], k=TOPK_LARGE["k"])
+    del q, k, v, big
     lm = seeded_lm(get_config("stablelm-1.6b"), device, seed)
     eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=32)
     traced(lambda: eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS), card, "profile")

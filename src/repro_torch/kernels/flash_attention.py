@@ -10,12 +10,17 @@ function does ``4 * hd`` operations per live (query, key) pair against
 q, k, v and out read or written once, so at prefill lengths it is bound by
 operations (:func:`bound_ms`): the tensor cores' 989 TFLOP/s for bf16 inputs,
 67 TFLOP/s for fp32 ones (TF32 would not compute the same function).  The
-design: one thread block per (batch * head, 64 query rows) that stages its
-scaled query tile once and walks only the key tiles the tile can see (causal
-and window bounds in the loop, as ``pl.when(live)`` skipped dead blocks),
-reading kv head ``h // G`` directly (no copy of K/V per query head); scores,
-running max, sum and accumulator in fp32, registers-tiled, with scalar FMAs.
-Tensor-core products (``wgmma``) and TMA staging are later work.
+design: one thread block per (batch * head, tile of query rows) that walks
+only the key tiles the tile can see (causal and window bounds in the loop,
+as ``pl.when(live)`` skipped dead blocks), reading kv head ``h // G``
+directly (no copy of K/V per query head), with the running max, sum and
+accumulator in fp32 registers.  bf16 inputs run on the tensor cores
+(``wgmma``): two warpgroups over 128 query rows share each K and V tile of
+64 keys, which stays bf16 in shared memory (128-byte swizzle), loaded by
+``cp.async`` into a ring of two stages so that the next tile's load
+overlaps this tile's products; the weights are rounded to bf16 in registers
+and feed the second product from there.  fp32 inputs keep scalar FMAs over
+64 query rows a block.  TMA and warp specialisation are later work.
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the plain
 version.  ``flash_attention.launches`` counts kernel launches.
@@ -114,7 +119,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``Sk - Sq`` when the leading keys are a cached prefix); causal and window
     masks compare absolute positions.  ``block_q`` and ``block_k`` are the
     reference's tiling hints and cannot change the result: the kernel picks
-    its own tiles (64 query rows; 64 keys, 32 at hd 128)."""
+    its own tiles (128 query rows and 64 keys in bf16; 64 query rows and 64
+    keys, 32 at hd 128, in fp32)."""
     del block_q, block_k
     check_args(q, k, v, window=window, q_offset=q_offset)
     if q.device.type == "cpu":

@@ -9,15 +9,18 @@ reference's ``ops.topk_scores``.
 
 Source note.  ``csrc/topk_scores.cu`` replaces the Pallas kernel
 ``repro/kernels/topk_scores.py::topk_scores`` and the ``lax.top_k`` after it.
-Stage 1 runs one thread block per tile of ``bn`` slots (:func:`tile_size`,
-the reference's rule): k rounds of a block-wide arg-max (the lower index
-wins a tie, as ``jnp.argmax``), each winner masked with ``NEG_INF``.  Stage 2
-runs one block over the ``n_blocks * k`` candidates: k rounds, each taking the
-best candidate after the previous winner in (value descending, position
-ascending) order, which is ``lax.top_k``'s.  A NaN ranks above every
-number in both stages, as in ``jnp.argmax`` and ``torch.sort``; a NaN with
-its sign bit set does too, where the reference's ``lax.top_k`` on the CPU
-puts it last.  Bound by bytes: each score is read once (:func:`bound_ms`).
+Stage 1 runs one thread block per tile of ``bn`` slots (:func:`tile_size`, the
+reference's rule): a radix select in shared memory finds the tile's best k
+(rank, slot) pairs, sorts only those, and writes the k candidates that k
+rounds of arg-max and mask would give (the lower index wins a tie, as
+``jnp.argmax``), the rounds past the tile's scores above ``NEG_INF`` in closed
+form.  Stage 2 keeps the k best candidates in (value descending, position
+ascending) order, which is ``lax.top_k``'s, by the same select: one block when
+there are at most 4096 candidates, else a grid of blocks over runs of them and
+one block over their survivors.  A NaN ranks above every number in both
+stages, as in ``jnp.argmax`` and ``torch.sort``; a NaN with its sign bit set
+does too, where the reference's ``lax.top_k`` on the CPU puts it last.  Bound
+by bytes: each score is read once (:func:`bound_ms`).
 
 The reference's padding is kept: slots past N hold ``NEG_INF = -3e38``, which
 outranks a score of ``-inf``, and a masked winner holds ``-3e38`` again.  So
@@ -25,8 +28,8 @@ with ``-inf`` scores the indices differ from ``ref.topk_ref`` exactly as the
 reference's do.
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the plain
-version.  ``topk_scores.launches`` counts kernel launches (one a call, both
-stages).
+version.  ``topk_scores.launches`` counts kernel launches (one a call, every
+stage).
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ import torch
 from . import _build
 
 NEG_INF = -3.0e38                  # the reference's padding and mask value
-MAX_BLOCK_N = 8192                 # a tile's scores in 32 KB of shared memory
+MAX_BLOCK_N = 8192                 # a tile's sort keys in 64 KB of shared memory
 MAX_K = 1024
+MERGE_RUN = 2048                   # the least candidates a merge block takes
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # the compares are fp32 work
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,18 +118,16 @@ def topk_scores(scores, k: int, *, block_n: int = 1024):
     fn = _launcher()
     n = scores.shape[0]
     bn = tile_size(n, k, block_n)
-    nb = -(-n // bn)
+    m = -(-n // bn) * k
     dev = scores.device
-    cand_v = torch.empty((nb, k), dtype=torch.float32, device=dev)
-    cand_k = torch.empty((nb, k), dtype=torch.int32, device=dev)
-    cand_i = torch.empty((nb, k), dtype=torch.int32, device=dev)
+    # candidates' sort keys, the merge blocks' survivors, values and indices
+    scratch = torch.empty((2 * m + -(-m // MERGE_RUN) * k,), dtype=torch.int64, device=dev)
     vals = torch.empty((k,), dtype=torch.float32, device=dev)
     idx = torch.empty((k,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(scores.data_ptr(), n, k, bn, cand_v.data_ptr(), cand_k.data_ptr(),
-                cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                _DTYPE_CODE[scores.dtype], stream)
+        rc = fn(scores.data_ptr(), n, k, bn, scratch.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), _DTYPE_CODE[scores.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"topk_scores_launch failed with code {rc} for scores "
                            f"{tuple(scores.shape)} {scores.dtype}, k {k}, tile {bn}")
@@ -139,7 +141,7 @@ topk_scores.launches = 0
 def _launcher():
     fn = _build.load("topk_scores").topk_scores_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -119,6 +119,78 @@ def test_topk_nan_ranks_first(case):
         check_topk(sc, 10, 32)
 
 
+def global_topk(scores, k):
+    """The k largest scores of the whole vector by (value desc, index asc),
+    a NaN above every number: what top-k means without tiles."""
+    nan = np.isnan(scores)
+    order = np.lexsort((np.arange(len(scores)), -np.where(nan, 0, scores), ~nan))[:k]
+    return scores[order], order.astype(np.int32)
+
+
+def above_neg_inf(scores):
+    return int((np.isnan(scores) | (scores > tk.NEG_INF)).sum())
+
+
+@pytest.mark.parametrize("block_n", [16, 64, 100, 1024])
+@pytest.mark.parametrize("kind", ["distinct", "ties", "mostly_minus_inf", "nan"])
+def test_topk_is_the_global_top_k_when_k_scores_lie_above_neg_inf(kind, block_n):
+    """When the k-th largest score lies above NEG_INF, the tiles do not show:
+    a score of the global top k is in its own tile's top k, and candidates
+    above NEG_INF come in index order, so the reference's function is the
+    global top k by (value desc, index asc)."""
+    rng = np.random.default_rng(block_n + len(kind))
+    n, k = 1500, 40
+    sc = rng.standard_normal(n).astype(np.float32)
+    if kind == "ties":
+        sc = np.round(sc * 2) / 2
+    elif kind == "mostly_minus_inf":
+        sc[rng.random(n) < 0.95] = -np.inf
+    elif kind == "nan":
+        sc[rng.random(n) < 0.01] = np.nan
+    assert above_neg_inf(sc) >= k
+    vals, idx = check_topk(sc, k, block_n)       # plain == Pallas kernel in interpret mode
+    want_v, want_i = global_topk(sc, k)
+    assert idx.tolist() == want_i.tolist()
+    np.testing.assert_array_equal(vals.numpy(), want_v)
+
+
+def test_topk_ties_straddling_tiles_at_the_kth_value():
+    """The k-th value tied on both sides of tile boundaries: the lower index
+    wins, as in the global order."""
+    sc = np.full(256, -1.0, np.float32)
+    sc[[3, 40, 70, 200]] = [9.0, 8.0, 7.0, 6.0]
+    sc[[31, 32, 63, 64, 127, 128]] = 2.0         # tiles of 32: each pair straddles a boundary
+    vals, idx = check_topk(sc, 7, 32)
+    assert idx.tolist() == [3, 40, 70, 200, 31, 32, 63]
+    assert idx.tolist() == global_topk(sc, 7)[1].tolist()
+
+
+@pytest.mark.parametrize("case", ["all_minus_inf", "k_past_the_tile", "few_finite_over_tiles",
+                                  "exactly_neg_inf"])
+def test_topk_fewer_than_k_above_neg_inf_is_the_quirk(case):
+    """With fewer than k scores above NEG_INF the tiles do show: each tile's
+    rounds past its scores hand on its lowest NEG_INF slot again (padding, a
+    masked winner or a score of exactly -3e38), which outranks -inf.  The
+    port follows the Pallas kernel there, not the global top k."""
+    rng = np.random.default_rng(len(case))
+    if case == "all_minus_inf":
+        sc, k, bn = np.full(300, -np.inf, np.float32), 8, 64
+    elif case == "k_past_the_tile":
+        sc, k, bn = rng.standard_normal(20).astype(np.float32), 40, 16
+    elif case == "few_finite_over_tiles":
+        sc = np.full(2000, -np.inf, np.float32)
+        sc[rng.choice(2000, 6, replace=False)] = rng.standard_normal(6)
+        k, bn = 16, 128
+    else:
+        sc = np.full(500, -np.inf, np.float32)
+        sc[rng.choice(500, 12, replace=False)] = tk.NEG_INF
+        sc[[7, 300]] = 1.0
+        k, bn = 10, 64
+    assert above_neg_inf(sc) < k
+    vals, idx = check_topk(sc, k, bn)
+    assert idx.tolist() != global_topk(sc, k)[1].tolist()
+
+
 def test_topk_other_float_types():
     """bf16 and fp64 scores are compared in fp32, as the reference casts."""
     sc = scores_of(11, 500)

@@ -34,7 +34,7 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   against their plain versions and against the path's own top 5 and Borda
   points;
 - ``kernels``: each kernel against its plain PyTorch version over the CPU
-  tests' sweeps and at full width, timed beside its bound, its plain version
+  tests' sweeps, edge cases and at full width, timed beside its bound, its plain version
   and, where one exists, the PyTorch call that computes the same function;
 - ``ops``: ``flash_attention`` and ``decode_attention`` through
   ``repro_torch.kernels.ops``, the entry points the reference reaches them by;
@@ -123,6 +123,20 @@ FLASH_EDGES = [(1, 4, 2, 100, 100, 64, 0, 0, True), (2, 8, 2, 77, 200, 128, 123,
                (1, 4, 2, 70, 150, 64, 0, 40, False), (1, 2, 2, 1, 333, 128, 332, 0, True)]
 # (b, h, kv, s, hd, fill): its decode sweep
 DECODE_SWEEP = [(2, 8, 2, 256, 64, 256), (1, 4, 4, 128, 128, 100), (2, 4, 1, 96, 64, 50)]
+# (b, h, kv, s, hd, slots): the tile walk's edges.  slots: n fills
+# slots 0..n-1; ("one", i) fills slot i alone; ("ring", w, (lo, hi)) a ring
+# wrapped w slots past its end, slots lo..hi-1 empty; ("ring_infnan", ...)
+# the same with inf in the empty slots' K rows and NaN in their V rows
+DECODE_EDGES = [(1, 4, 1, 1024, 128, ("one", 777)),     # one valid slot in S 1024
+                (1, 4, 1, 4096, 128, 4096),             # B 1 x KV 1: one block, 128 tiles
+                (2, 8, 2, 1000, 64, 777),               # S off the tile size
+                (2, 8, 2, 512, 128, ("ring", 300, (100, 180))),  # a ring with a hole
+                (1, 4, 1, 2048, 64, 0),                 # nothing valid in 32 tiles: 0
+                (2, 4, 2, 300, 8, 250), (2, 4, 2, 300, 16, 250),  # hd 8, 16
+                (2, 4, 2, 300, 32, 123),                # hd 32
+                (2, 16, 2, 700, 128, 600),              # G 8
+                (1, 12, 2, 256, 64, 200), (1, 24, 2, 256, 64, 200),  # G 6, G 12
+                (2, 8, 2, 1024, 128, ("ring_infnan", 300, (100, 500)))]
 # full-width attention shapes: stablelm-1.6b (G 1) and llama3-8b (G 4)
 FULL = {"stablelm-1.6b": dict(h=32, kv=32, hd=64), "llama3-8b": dict(h=32, kv=8, hd=128)}
 FULL_ROWS, FULL_BS, FULL_NB, FULL_MAXB = 32, 16, 768, 23
@@ -159,6 +173,17 @@ TOPK_LARGE = dict(n=1 << 20, k=64, block_n=1024)
 # (r, s, n): test_borda's sweep, ids past n_items, a wide ballot; then the
 # large shape: 4096 ballots of 64 over 1024 items (8.5 M points in all)
 BORDA_SWEEP = [(6, 20, 20), (3, 10, 50), (9, 15, 130), (1, 5, 5), (4, 12, 8), (2, 64, 300)]
+# (r, s, n, ids): the routes' edges, ballots drawn from ids ids (those >= n
+# count nothing): n_items at and one past the one-block limit; R * S at the
+# one-block slot limit and one ballot past it; one ballot of 65535 and of
+# 65536 slots, points up to S (the plain version's one-hot stays small);
+# ids up to twice n_items
+BORDA_EDGES = [(64, 64, bc.BLOCK_ITEMS, bc.BLOCK_ITEMS),
+               (64, 64, bc.BLOCK_ITEMS + 1, bc.BLOCK_ITEMS + 1),
+               (bc.ONE_BLOCK_SLOTS // 64, 64, 100, 100),
+               (bc.ONE_BLOCK_SLOTS // 64 + 1, 64, 100, 100),
+               (1, 65535, 64, 65535), (1, 65536, 64, 65536),
+               (2048, 64, 500, 1000), (16, 32, 20, 40)]
 BORDA_LARGE = dict(r=4096, s=64, n=1024)
 # 2^22 permutations of 8: each item's points sum to about 1.9e7, past 2^24
 BORDA_PAST_2_24 = (1 << 22, 8)
@@ -390,6 +415,25 @@ def decode_inputs(seed, b, h, kv, s, hd, fill, dtype, device):
             randn(rng, (b, s, kv, hd), dtype, device), torch.from_numpy(pos).to(device))
 
 
+def decode_edge_inputs(seed, b, h, kv, s, hd, slots, dtype, device):
+    """decode_inputs with the slots of a DECODE_EDGES entry."""
+    if isinstance(slots, int):
+        return decode_inputs(seed, b, h, kv, s, hd, slots, dtype, device)
+    q, kc, vc, _ = decode_inputs(seed, b, h, kv, s, hd, s, dtype, device)
+    idx = np.arange(s)
+    if slots[0] == "one":
+        pos = np.where(idx == slots[1], 5000, -1)
+    else:
+        wrap, (lo, hi) = slots[1], slots[2]
+        pos = np.where(idx < wrap, idx + s, idx)    # slot j holds the last position = j mod s
+        pos[lo:hi] = -1
+    pos = torch.from_numpy(pos.astype(np.int32)).to(device)
+    if slots[0] == "ring_infnan":
+        kc[:, pos < 0] = math.inf
+        vc[:, pos < 0] = math.nan
+    return q, kc, vc, pos
+
+
 def sdpa_decode(q, kc, vc, pos):
     """The yardstick: one PyTorch call on the same inputs (cache views)."""
     out = F.scaled_dot_product_attention(
@@ -414,10 +458,24 @@ def kernel_decode(device, flush) -> dict:
     empty = da.decode_attention(*args)
     torch.cuda.synchronize()
     assert torch.equal(empty, torch.zeros_like(empty)), "an empty cache did not give 0"
-    say("kernels.sweep", kernel="decode_attention", shapes=len(DECODE_SWEEP),
+    edges = []
+    for i, (b, h, kv, s, hd, slots) in enumerate(DECODE_EDGES):
+        rec = dict(shape=[b, h, kv, s, hd], slots=slots)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = decode_edge_inputs(300 + i, b, h, kv, s, hd, slots, dtype, device)
+            got = da.decode_attention(*args)
+            torch.cuda.synchronize()
+            err = check_close(got, da.decode_attention_plain(*args), dtype,
+                              f"decode_attention edge {DECODE_EDGES[i]} {dtype}", ATT_TOL)
+            if not bool((args[3] >= 0).any()):
+                assert torch.equal(got, torch.zeros_like(got)), f"edge {DECODE_EDGES[i]}: not 0"
+            worst[dtype] = max(worst[dtype], err)
+            rec[f"max_abs_err_{dtype_name(dtype)}"] = err
+        edges.append(rec)
+    say("kernels.sweep", kernel="decode_attention", shapes=len(DECODE_SWEEP) + len(DECODE_EDGES),
         max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
         tol_fp32=ATT_TOL[torch.float32], tol_bf16=ATT_TOL[torch.bfloat16],
-        empty_cache_gives_zero=True)
+        empty_cache_gives_zero=True, edges=edges)
 
     shapes = []
     b, s, fill = DECODE_FULL["b"], DECODE_FULL["s"], DECODE_FULL["fill"]
@@ -432,13 +490,18 @@ def kernel_decode(device, flush) -> dict:
             t_bytes = da.bound_ms(fill, b, d["h"], d["kv"], s, d["hd"], args[0].element_size())
             t_ops = 1e3 * 4 * d["hd"] * fill * b * d["h"] / PEAK_FLOPS[dtype]
             bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            # what a plain streaming read of as many bytes as the valid K and
+            # V rows reaches under the same timing (the flush leaves L2 dirty)
+            flat = torch.ones(2 * fill * b * d["kv"] * d["hd"], dtype=dtype, device=device)
+            stream_ms = time_ms(lambda: flat.sum(dtype=torch.float32), flush)
+            del flat
             rec = dict(shape=f"{arch} B{b} H{d['h']} KV{d['kv']} hd{d['hd']} S{s} valid{fill}",
                        dtype=dtype_name(dtype), max_abs_err=err,
                        ms=time_ms(lambda: da.decode_attention(*args), flush),
                        plain_ms=time_ms(lambda: da.decode_attention_plain(*args), flush),
                        bound_ms=bound, bound_by=by,
                        library_ms=time_ms(lambda: sdpa_decode(*args), flush),
-                       library_max_abs_err=max_err(lib, got))
+                       library_max_abs_err=max_err(lib, got), stream_read_ms=stream_ms)
             say("kernels.full_width", kernel="decode_attention", **rec)
             shapes.append(rec)
     return summary("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -689,11 +752,12 @@ def kernel_topk(device, flush, path) -> dict:
                    "src/repro/kernels/topk_scores.py:46", "train.ops", shapes)
 
 
-def borda_ballots(seed, r, s, n, device):
-    """tests/test_kernels.py's ballots: permutations cut to s, the first
-    ballot truncated with -1 pads."""
+def borda_ballots(seed, r, s, n, device, ids=None):
+    """tests/test_kernels.py's ballots: permutations of max(ids, s) items
+    (ids defaults to n) cut to s, the first ballot truncated with -1 pads."""
     rng = np.random.default_rng(seed)
-    ballots = np.stack([rng.permutation(max(n, s))[:s] for _ in range(r)]).astype(np.int32)
+    ballots = np.stack([rng.permutation(max(ids or n, s))[:s]
+                        for _ in range(r)]).astype(np.int32)
     if r > 1:
         ballots[0, -2:] = -1
     return torch.from_numpy(ballots).to(device)
@@ -709,8 +773,9 @@ def borda_check(ballots, n, what) -> None:
 
 
 def kernel_borda(device, flush, path) -> dict:
-    """borda_count against borda_count_plain on the card: the sweep; then
-    timed on phase train's ballots and on 4096 ballots of 64."""
+    """borda_count against borda_count_plain on the card: the sweep, sums
+    past 2^24, the routes' edges; then timed on phase train's ballots and on
+    4096 ballots of 64."""
     for i, (r, s, n) in enumerate(BORDA_SWEEP):
         borda_check(borda_ballots(90 + i, r, s, n, device), n, f"borda_count {(r, s, n)}")
     # sums past 2^24, where fp32 adds stop being exact: the kernel's integer
@@ -724,10 +789,16 @@ def kernel_borda(device, flush, path) -> dict:
         0, ballots.reshape(-1).long(), torch.arange(s, 0, -1, device=device).repeat(r))
     assert int(exact.max()) > 2 ** 24, exact.tolist()
     assert torch.equal(got, exact.float()), f"borda_count past 2^24: {got} vs {exact}"
-    plain_equal = torch.equal(got, bc.borda_count_plain(ballots, s))
-    say("kernels.sweep", kernel="borda_count", shapes=len(BORDA_SWEEP) + 1, points_exact=True,
-        past_2_24=dict(ballots=[r, s], largest_sum=int(exact.max()),
-                       equals_exact_sum_rounded=True, equals_plain_fp32_einsum=plain_equal))
+    past_2_24 = dict(ballots=[r, s], largest_sum=int(exact.max()),
+                     route=bc.borda_plan(r, s, s).route, equals_exact_sum_rounded=True,
+                     equals_plain_fp32_einsum=torch.equal(got, bc.borda_count_plain(ballots, s)))
+    edges = []
+    for i, (r, s, n, ids) in enumerate(BORDA_EDGES):
+        borda_check(borda_ballots(110 + i, r, s, n, device, ids=ids), n,
+                    f"borda_count edge {BORDA_EDGES[i]}")
+        edges.append(dict(ballots=[r, s], n_items=n, ids=ids, route=bc.borda_plan(r, s, n).route))
+    say("kernels.sweep", kernel="borda_count", shapes=len(BORDA_SWEEP) + 1 + len(BORDA_EDGES),
+        points_exact=True, edges=edges, past_2_24=past_2_24)
 
     if path:
         cases = [(path["tag"], path["ballots"], path["n_items"])]
@@ -748,7 +819,8 @@ def kernel_borda(device, flush, path) -> dict:
         lib = torch.zeros(n, device=device).index_add_(0, ids, pts)
         assert torch.equal(lib, bc.borda_count(ballots, n)), f"{tag}: index_add_ differs"
         bound, by = bc.bound_ms(r, s, n)
-        rec = dict(shape=f"{tag}: R{r} S{s} n_items {n}", dtype="int32", max_abs_err=0.0,
+        rec = dict(shape=f"{tag}: R{r} S{s} n_items {n}", route=bc.borda_plan(r, s, n).route,
+                   dtype="int32", max_abs_err=0.0,
                    ms=time_ms(lambda: bc.borda_count(ballots, n), flush),
                    plain_ms=time_ms(lambda: bc.borda_count_plain(ballots, n), flush),
                    bound_ms=bound, bound_by=by,
@@ -1647,9 +1719,19 @@ def traced(fn, card, tag, **extra) -> None:
 
 def phase_profile(device, card, seed) -> None:
     """Not part of the default run: trace flash attention and top-k at their
-    large timed shapes, one generate of the kernel engine at stablelm-1.6b's
-    full width, then one training step of the whole minicpm-2b as phase
-    train runs it."""
+    large timed shapes, decode attention at llama3-8b's timed shape, Borda
+    count at the optimizer's ballots (4 of 8 over 8 items), one generate of
+    the kernel engine at stablelm-1.6b's full width, then one training step
+    of the whole minicpm-2b as phase train runs it."""
+    d, f = FULL["llama3-8b"], DECODE_FULL
+    dargs = decode_inputs(17, f["b"], d["h"], d["kv"], f["s"], d["hd"], f["fill"],
+                          torch.bfloat16, device)
+    traced(lambda: da.decode_attention(*dargs), card, "profile.decode_attention",
+           arch="llama3-8b", dtype="bfloat16")
+    ballots = borda_ballots(98, 4, 8, 8, device)
+    traced(lambda: bc.borda_count(ballots, 8), card, "profile.borda_count", ballots=[4, 8],
+           n_items=8, route=bc.borda_plan(4, 8, 8).route)
+    del dargs, ballots
     s = FLASH_MONOLITHIC
     for arch, d in FULL.items():
         q, k, v = flash_inputs(13, s["b"], d["h"], d["kv"], s["sq"], s["sk"], d["hd"],

@@ -6,119 +6,185 @@
 //   pos      (S) int32               absolute position of each slot, -1 = empty
 //   out      (B, H, hd)              in q's type
 //
-// One thread block per (sequence, kv head), holding the G = H / KV query
-// heads of the group.  The block walks the S slots in tiles of TILE tokens;
-// a slot's hd values for one kv head are contiguous at
-// ((b * S + s) * KV + kv) * hd, so each row is fetched with 16-byte loads in
-// the cache's native layout (the TPU wrapper transposed both caches on every
-// call).  A slot takes part where pos[s] >= 0; the K and V rows of an empty
-// slot are never loaded (zero-filled in shared memory, weight exactly 0), so
-// a row whose slots are all empty gives 0, as the reference does.  The tile
-// update, the running (m, l, acc) state and the finish are attn_tile.cuh's,
-// shared with the paged decode kernel.  All arithmetic is fp32.
+// Replaces the Pallas kernel repro/kernels/decode_attention.py::
+// decode_attention.  Bound by bytes: each K and V row of an occupied slot is
+// read once and used for about one multiply-add per byte and head.
 //
-// Plain C interface, loaded with ctypes.  The launch goes to the stream it is
-// given, allocates nothing and does not synchronise.
+// Design.  One block per (sequence, kv head, chunk of at most 8 of the
+// group's G query heads) walks all of the sequence's slots in tiles
+// (decode_tile.cuh::tile_rows) and writes its heads' output.  A block stages
+// its tiles in their stored type with 16-byte cp.async into a ring of
+// kStages: the next two tiles are in flight while one is folded.  A tile's
+// pos values arrive by 4-byte cp.async one ring ahead of its rows, so the
+// rows of empty slots (pos < 0) are never loaded and a tile's pos is read
+// from memory once.  The fold keeps the queries, the softmax state and the
+// accumulators in registers (decode_tile.cuh): each staged K and V element
+// crosses shared memory once per block, whatever G is.  A row with no
+// occupied slot gives exactly 0.  All arithmetic is fp32 (no TF32).
+//
+// The keys are not split over blocks: at the shapes the port times (B 32
+// over 8 or 32 kv heads, 256 or 1024 blocks) one block a row beat every
+// split on the H100 (PERF.md, section 5).
+//
+// Plain C interface, loaded with ctypes.  The launch goes to the stream it
+// is given, allocates nothing and does not synchronise.
 
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include "decode_tile.cuh"
 
 namespace repro {
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+using dtile::kStages;
+using dtile::kThreads;
+
+constexpr int kPosSlots = 2 * kStages - 1;  // a tile's pos lands kStages - 1 groups early
+
+// 3 blocks an SM (170 registers a thread) up to 4 heads a block, 2 for 8
+template <typename T, int HD, int GC>
+__global__ void __launch_bounds__(kThreads, GC <= 4 ? 3 : 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                         const T* __restrict__ v_cache, const int* __restrict__ pos,
                         T* __restrict__ out, int n_heads, int n_kv, int n_slots, float scale) {
-  constexpr int TILE = TileCfg<HD>::TILE;
-  constexpr int LD = TileCfg<HD>::LD;
-  constexpr int VN = Vec16<T>::N;   // elements per 16-byte load
-  constexpr int VPR = HD / VN;      // 16-byte loads per token row
+  using C = dtile::Cfg<T, HD, GC>;
+  constexpr int TILE = C::TILE, TILE_CH = C::TILE_CH, NCH = C::NCH, VN = C::VN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* kbuf = reinterpret_cast<uint4*>(smem);      // (kStages, TILE_CH)
+  uint4* vbuf = kbuf + kStages * TILE_CH;            // (kStages, TILE_CH)
+  int* pos_s = reinterpret_cast<int*>(vbuf + kStages * TILE_CH);  // (kPosSlots, TILE)
 
-  extern __shared__ float smem[];
   const int g = n_heads / n_kv;
-  const int b = blockIdx.x / n_kv;
-  const int kvh = blockIdx.x - b * n_kv;
+  const int n_hc = (g + GC - 1) / GC;
+  int bid = blockIdx.x;
+  const int hc = bid % n_hc;
+  bid /= n_hc;
+  const int kvh = bid % n_kv;
+  const int b = bid / n_kv;
+  const int head0 = kvh * g + hc * GC;  // this block's first query head
+  const int n_here = min(GC, g - hc * GC);
   const int tid = threadIdx.x;
+  const int gi = tid / C::L, k = tid % C::L;
 
-  float* k_s = smem;
-  float* v_s = k_s + TILE * LD;
-  int* valid_s = reinterpret_cast<int*>(v_s + TILE * LD);
-  AttnState st = attn_state_carve<HD>(reinterpret_cast<float*>(valid_s + TILE), g);
+  const int n_tiles = (n_slots + TILE - 1) / TILE;
+  const size_t row_stride = (size_t)n_kv * HD;
+  const size_t seq_off = (size_t)b * n_slots * row_stride + (size_t)kvh * HD;
+  const T* k_seq = k_cache + seq_off;
+  const T* v_seq = v_cache + seq_off;
 
-  attn_state_init<HD>(st, g);
-  const T* q_row = q + ((size_t)b * n_heads + (size_t)kvh * g) * HD;
-  for (int i = tid; i < g * HD; i += kThreads) st.q[i] = to_float(q_row[i]) * scale;
+  auto load_pos = [&](int t) {
+    if (t >= n_tiles) return;
+    int* dst = pos_s + (t % kPosSlots) * TILE;
+    const int s0 = t * TILE;
+    for (int r = tid; r < TILE; r += kThreads) {
+      if (s0 + r < n_slots)
+        dtile::cp_async4(dst + r, pos + s0 + r);
+      else
+        dst[r] = -1;
+    }
+  };
+  auto load_kv = [&](int t) {
+    if (t >= n_tiles) return;
+    const int* ps = pos_s + (t % kPosSlots) * TILE;
+    const int s0 = t * TILE;
+    uint4* kd = kbuf + (t % kStages) * TILE_CH;
+    uint4* vd = vbuf + (t % kStages) * TILE_CH;
+#pragma unroll
+    for (int m = 0; m < C::CPT; ++m) {
+      const int i = tid + m * kThreads;
+      const int r = i / NCH, c = i - r * NCH;
+      if (ps[r] >= 0) {
+        const size_t off = (size_t)(s0 + r) * row_stride + (size_t)c * VN;
+        const int at = C::swz(r, c);
+        mma::cp_async16(kd + at, k_seq + off);
+        mma::cp_async16(vd + at, v_seq + off);
+      }
+    }
+  };
 
-  const size_t slot_stride = (size_t)n_kv * HD;
-  const T* k_seq = k_cache + (size_t)b * n_slots * slot_stride + (size_t)kvh * HD;
-  const T* v_seq = v_cache + (size_t)b * n_slots * slot_stride + (size_t)kvh * HD;
+  // Group u of copies holds the rows of tile u and the pos of tile
+  // u + kStages - 1, which load_kv needs right after group u has landed.
+  // The queries load while the first tiles' pos are in flight.
+  for (int t = 0; t < kStages - 1; ++t) load_pos(t);
+  mma::cp_async_commit();
+  dtile::GroupState<T, HD, GC> st;
+  st.init(q + ((size_t)b * n_heads + head0) * HD, n_here, scale, k);
+  mma::cp_async_wait<0>();
   __syncthreads();
-
-  for (int s0 = 0; s0 < n_slots; s0 += TILE) {
-    for (int t = tid; t < TILE; t += kThreads) {
-      const int s = s0 + t;
-      valid_s[t] = (s < n_slots && pos[s] >= 0) ? 1 : 0;
-    }
-    __syncthreads();
-    // stage the tile: one 16-byte load of K and one of V per (slot, chunk)
-    for (int i = tid; i < TILE * VPR; i += kThreads) {
-      const int t = i / VPR, c = i - t * VPR;
-      float kf[VN], vf[VN];
-      if (valid_s[t]) {
-        const size_t off = (size_t)(s0 + t) * slot_stride + (size_t)c * VN;
-        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(k_seq + off), kf);
-        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(v_seq + off), vf);
-      } else {
-#pragma unroll
-        for (int j = 0; j < VN; ++j) kf[j] = vf[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        k_s[t * LD + c * VN + j] = kf[j];
-        v_s[t * LD + c * VN + j] = vf[j];
-      }
-    }
-    __syncthreads();
-    attn_tile_update<HD>(st, k_s, v_s, valid_s, g);
+  for (int t = 0; t < kStages - 1; ++t) {
+    load_kv(t);
+    load_pos(t + kStages - 1);
+    mma::cp_async_commit();
   }
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<kStages - 2>();  // group t has landed
+    __syncthreads();                    // ... for every thread, and tile t - 1 is folded
+    load_kv(t + kStages - 1);
+    load_pos(t + 2 * kStages - 2);
+    mma::cp_async_commit();
+    const int* ps = pos_s + (t % kPosSlots) * TILE;
+    st.fold(kbuf + (t % kStages) * TILE_CH, vbuf + (t % kStages) * TILE_CH, gi, k,
+            [&](int r) { return ps[r] >= 0; });
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for block_combine
 
-  T* out_row = out + ((size_t)b * n_heads + (size_t)kvh * g) * HD;
-  attn_finish<HD>(st, g, [&](int idx, float x) { from_float(out_row + idx, x); });
+  T* o = out + ((size_t)b * n_heads + head0) * HD;
+  st.block_combine(reinterpret_cast<float*>(smem), gi, k, [&](int h, int d, float a, float l) {
+    if (h < n_here) from_float(o + h * HD + d, a / fmaxf(l, 1e-30f));
+  });
 }
 
-template <int HD>
-size_t smem_bytes(int g) {
-  return sizeof(float) * (2 * TileCfg<HD>::TILE * TileCfg<HD>::LD + attn_state_floats<HD>(g)) +
-         sizeof(int) * TileCfg<HD>::TILE;
+template <typename T, int HD, int GC>
+size_t smem_bytes() {
+  using C = dtile::Cfg<T, HD, GC>;
+  const size_t ring = 2 * kStages * C::TILE_CH * 16 + kPosSlots * C::TILE * sizeof(int);
+  const size_t red = C::RED_FLOATS * sizeof(float);
+  return ring > red ? ring : red;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GC>
 int launch(const void* q, const void* k_cache, const void* v_cache, const int* pos, void* out,
            int n_rows, int n_heads, int n_kv, int n_slots, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>(n_heads / n_kv);
-  if (smem > kMaxSmem) return -2;
-  auto kernel = decode_attention_kernel<T, HD>;
+  const size_t smem = smem_bytes<T, HD, GC>();
+  if (smem > dtile::kMaxSmem) return -2;
+  auto kernel = decode_attention_kernel<T, HD, GC>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<n_rows * n_kv, kThreads, smem, stream>>>(
+  const int g = n_heads / n_kv;
+  const long long blocks = (long long)n_rows * n_kv * ((g + GC - 1) / GC);
+  if (blocks > 0x7fffffffLL) return -2;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
       pos, static_cast<T*>(out), n_heads, n_kv, n_slots, scale);
   return (int)cudaGetLastError();
+}
+
+// GC, the query heads a block holds: 1, 4 (G 2 to 4, spare heads masked) or
+// 8 (larger groups take several blocks of 8).
+template <typename T, int HD>
+int dispatch_gc(const void* q, const void* k_cache, const void* v_cache, const int* pos,
+                void* out, int n_rows, int n_heads, int n_kv, int n_slots, float scale,
+                cudaStream_t stream) {
+  const int g = n_heads / n_kv;
+#define REPRO_GC_CASE(N) \
+  return launch<T, HD, N>(q, k_cache, v_cache, pos, out, n_rows, n_heads, n_kv, n_slots, scale, stream)
+  if (g <= 1) REPRO_GC_CASE(1);
+  if (g <= 4) REPRO_GC_CASE(4);
+  REPRO_GC_CASE(8);
+#undef REPRO_GC_CASE
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k_cache, const void* v_cache, const int* pos,
                 void* out, int n_rows, int n_heads, int n_kv, int n_slots, float scale,
                 cudaStream_t stream) {
-#define REPRO_HD_CASE(N)                                                                     \
-  case N:                                                                                    \
-    return launch<T, N>(q, k_cache, v_cache, pos, out, n_rows, n_heads, n_kv, n_slots, scale, \
-                        stream)
+#define REPRO_HD_CASE(N)                                                                  \
+  case N:                                                                                 \
+    return dispatch_gc<T, N>(q, k_cache, v_cache, pos, out, n_rows, n_heads, n_kv, n_slots, \
+                             scale, stream)
   switch (hd) {
     REPRO_HD_CASE(8);
     REPRO_HD_CASE(16);
@@ -134,8 +200,8 @@ int dispatch_hd(int hd, const void* q, const void* k_cache, const void* v_cache,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t when
-// the launch was refused, -1 for an unsupported head_dim or dtype, -2 when the
-// query group needs more shared memory than a block may have.
+// the launch was refused, -1 for an unsupported head_dim or dtype, -2 for a
+// grid or shared-memory size out of range.
 extern "C" int decode_attention_launch(const void* q, const void* k_cache, const void* v_cache,
                                        const void* pos, void* out, int n_rows, int n_heads,
                                        int n_kv, int hd, int n_slots, int dtype, float scale,

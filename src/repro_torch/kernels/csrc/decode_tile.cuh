@@ -1,0 +1,284 @@
+// Single-query attention tile walk on Hopper (sm_90a): the pieces a decode
+// kernel needs once it has staged a tile of K and V rows in shared memory.
+//
+// One block of kThreads threads owns one (sequence, kv head, chunk of GC
+// query heads).  The block's threads form NG lane groups of L lanes.  A
+// group walks its own rows of every staged tile (rows gi, gi + NG, ...) and
+// keeps its own online-softmax state, so no barrier separates the scores,
+// the softmax and the weighted sum of a tile:
+//
+//   - each lane holds E of the hd query values of all GC heads in
+//     registers (already scaled by 1/sqrt(hd) * log2(e), so the softmax is
+//     taken with exp2), and E accumulator values of each head;
+//   - a lane reads its E values of a K row once from shared memory and uses
+//     each for GC heads; the dot products are summed over the group's L
+//     lanes with xor shuffles, which leave the same bits in every lane;
+//   - the running maximum m, the sum l and acc stay in registers in fp32;
+//     acc is rescaled only when a tile raises the maximum;
+//   - an invalid row is never read (its K and V may hold anything, inf and
+//     NaN included) and adds exactly nothing.
+//
+// Rows are staged in their stored type (fp32 or bf16) as 16-byte chunks.
+// A lane owns chunks k, k + L, ... of a row, so the L lanes of a group read
+// L neighbouring chunks; Cfg::swz places chunk c of row r so that the 8
+// lanes of each quarter warp hit 8 different 16-byte bank groups.
+//
+// block_combine() merges the NG group states of a block into one (m, l, acc)
+// per head; out = acc / max(l, 1e-30), so a head with no valid row
+// (m = -1e30, l = 0, acc = 0) gives exactly 0.
+//
+// Users: the dense ring-cache decode kernel (decode_attention.cu), which
+// stages tiles with cp.async in a ring of kStages and flags rows by pos.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "hopper_mma.cuh"
+#include "scalar.cuh"
+
+namespace repro {
+namespace dtile {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;  // depth of the K/V ring
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;  // bytes one block may use on sm_90
+
+// Rows (tokens) per tile: 8 KB of bf16 K rows from hd 32 up, 128 rows below.
+constexpr int tile_rows(int hd) { return hd >= 32 ? 4096 / hd : 128; }
+
+// 4 bytes global -> shared through L1; lands at cp_async_wait.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(mma::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// A 16-byte chunk of stored values unpacked to fp32.
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& raw, float* dst) {
+    dst[0] = __uint_as_float(raw.x);
+    dst[1] = __uint_as_float(raw.y);
+    dst[2] = __uint_as_float(raw.z);
+    dst[3] = __uint_as_float(raw.w);
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& raw, float* dst) {
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 is the upper half of the fp32 of the same value
+      dst[2 * i] = __uint_as_float(w[i] << 16);
+      dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <typename T, int HD, int GC>
+struct Cfg {
+  static constexpr int VN = Chunk<T>::N;              // values per 16-byte chunk
+  static constexpr int NCH = HD / VN;                 // chunks per row
+  static constexpr int E_MAX = GC <= 4 ? 16 : 8;      // q and acc: 2 * GC * E registers
+  static constexpr int E = E_MAX < HD ? E_MAX : HD;   // values of a row a lane owns
+  static constexpr int CPL = E / VN;                  // chunks a lane owns
+  static constexpr int L = NCH / CPL;                 // lanes per group
+  static constexpr int NG = kThreads / L;             // groups per block
+  static constexpr int TILE = tile_rows(HD);          // rows per tile
+  static constexpr int RPG = TILE / NG;               // rows of a tile per group
+  static constexpr int TILE_CH = TILE * NCH;          // chunks of one tensor per tile
+  static constexpr int CPT = TILE_CH / kThreads;      // chunks a thread stages per tensor
+  static_assert(CPL >= 1 && L >= 1 && L <= 32, "lane groups must fit a warp");
+  static_assert(RPG >= 1 && TILE % NG == 0, "every group needs whole rows of a tile");
+  static_assert(CPT >= 1 && TILE_CH % kThreads == 0, "the threads stage whole tiles");
+
+  // Where chunk c of row r lies, in chunks from the tile's start.  From 8
+  // chunks a row (128 bytes) up, the low 3 bits of c are xor-ed with r * L;
+  // below, rows share a 128-byte line and the line's index (mod CPL), times
+  // L, is xor-ed in.  Either way a row keeps its own chunks.
+  __device__ static int swz(int r, int c) {
+    if constexpr (NCH >= 8) {
+      return r * NCH + (c ^ ((r * L) & 7));
+    } else {
+      const int p = r * NCH + c;
+      return p ^ (((p >> 3) % CPL) * L);
+    }
+  }
+
+  // Floats of shared memory block_combine() needs.
+  static constexpr int RED_FLOATS = 2 * GC * NG + 8 + NG * GC * HD;
+};
+
+template <typename T, int HD, int GC>
+struct GroupState {
+  using C = Cfg<T, HD, GC>;
+  float q[GC][C::E];
+  float acc[GC][C::E];
+  float m[GC];
+  float l[GC];
+
+  // q_rows: the first of this block's heads, (GC, HD) in the stored type;
+  // heads at or past n_here read as 0 and are never written.
+  __device__ void init(const T* q_rows, int n_here, float scale, int k) {
+    const float s = scale * kLog2e;
+#pragma unroll
+    for (int h = 0; h < GC; ++h) {
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j) {
+        float v[C::VN];
+        if (h < n_here) {
+          Chunk<T>::unpack(
+              *reinterpret_cast<const uint4*>(q_rows + h * HD + (j * C::L + k) * C::VN), v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < C::VN; ++e) v[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < C::VN; ++e) {
+          q[h][j * C::VN + e] = v[e] * s;
+          acc[h][j * C::VN + e] = 0.f;
+        }
+      }
+      m[h] = kNegInf;
+      l[h] = 0.f;
+    }
+  }
+
+  // Fold the group's rows of one staged tile into the state.  kb, vb: the
+  // tile's K and V chunks laid out by Cfg::swz; valid(r): whether row r of
+  // the tile takes part (the same answer for every lane of a group).  Every
+  // thread of the block calls it (the shuffles span the whole warp).
+  template <class Valid>
+  __device__ __forceinline__ void fold(const uint4* kb, const uint4* vb, int gi, int k,
+                                       Valid valid) {
+    float sc[C::RPG][GC];
+    bool ok[C::RPG];
+#pragma unroll
+    for (int i = 0; i < C::RPG; ++i) {
+      const int r = gi + i * C::NG;
+      ok[i] = valid(r);
+#pragma unroll
+      for (int h = 0; h < GC; ++h) sc[i][h] = 0.f;
+      if (ok[i]) {
+#pragma unroll
+        for (int j = 0; j < C::CPL; ++j) {
+          float kf[C::VN];
+          Chunk<T>::unpack(kb[C::swz(r, j * C::L + k)], kf);
+#pragma unroll
+          for (int e = 0; e < C::VN; ++e)
+#pragma unroll
+            for (int h = 0; h < GC; ++h) sc[i][h] = fmaf(q[h][j * C::VN + e], kf[e], sc[i][h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = C::L / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < C::RPG; ++i)
+#pragma unroll
+        for (int h = 0; h < GC; ++h) sc[i][h] += __shfl_xor_sync(0xffffffffu, sc[i][h], o);
+
+#pragma unroll
+    for (int h = 0; h < GC; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < C::RPG; ++i)
+        if (ok[i]) mx = fmaxf(mx, sc[i][h]);
+      if (mx > m[h]) {
+        const float a = exp2f(m[h] - mx);
+        m[h] = mx;
+        l[h] *= a;
+#pragma unroll
+        for (int e = 0; e < C::E; ++e) acc[h][e] *= a;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::RPG; ++i) {
+      if (!ok[i]) continue;
+      const int r = gi + i * C::NG;
+      float p[GC];
+#pragma unroll
+      for (int h = 0; h < GC; ++h) {
+        p[h] = exp2f(sc[i][h] - m[h]);
+        l[h] += p[h];
+      }
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j) {
+        float vf[C::VN];
+        Chunk<T>::unpack(vb[C::swz(r, j * C::L + k)], vf);
+#pragma unroll
+        for (int e = 0; e < C::VN; ++e)
+#pragma unroll
+          for (int h = 0; h < GC; ++h)
+            acc[h][j * C::VN + e] = fmaf(p[h], vf[e], acc[h][j * C::VN + e]);
+      }
+    }
+  }
+
+  // Merge the block's NG group states.  red: C::RED_FLOATS floats of shared
+  // memory that no copy or thread still uses.  Calls emit(h, d, acc, l)
+  // once for each head h < GC and column d < HD, acc and l scaled to the
+  // block's maximum.  Every thread of the block calls it.
+  template <class Emit>
+  __device__ __forceinline__ void block_combine(float* red, int gi, int k, Emit emit) const {
+    float* red_m = red;                      // (GC, NG)
+    float* red_l = red_m + GC * C::NG;       // (GC, NG)
+    float* red_big = red_l + GC * C::NG;     // (GC), padded to 8
+    float* red_acc = red_big + 8;            // (NG, GC * HD)
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (k == 0) {
+#pragma unroll
+      for (int h = 0; h < GC; ++h) red_m[h * C::NG + gi] = m[h];
+    }
+    __syncthreads();
+    for (int h = warp; h < GC; h += kWarps) {
+      float x = kNegInf;
+      for (int i = lane; i < C::NG; i += 32) x = fmaxf(x, red_m[h * C::NG + i]);
+      x = warp_max(x);
+      if (lane == 0) red_big[h] = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < GC; ++h) {
+      const float w = exp2f(m[h] - red_big[h]);
+      if (k == 0) red_l[h * C::NG + gi] = l[h] * w;
+      float* dst = red_acc + (size_t)gi * GC * HD + h * HD;
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j)
+#pragma unroll
+        for (int e = 0; e < C::VN; ++e)
+          dst[(j * C::L + k) * C::VN + e] = acc[h][j * C::VN + e] * w;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < GC * HD; idx += kThreads) {
+      const int h = idx / HD, d = idx - h * HD;
+      float a = 0.f, lsum = 0.f;
+      for (int i = 0; i < C::NG; ++i) {
+        a += red_acc[(size_t)i * GC * HD + idx];
+        lsum += red_l[h * C::NG + i];
+      }
+      emit(h, d, a, lsum);
+    }
+  }
+};
+
+}  // namespace dtile
+}  // namespace repro

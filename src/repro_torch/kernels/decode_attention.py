@@ -11,12 +11,16 @@ Source note.  ``csrc/decode_attention.cu`` replaces the Pallas kernel
 function is bound by bytes: the K and V rows of the occupied slots
 (``pos >= 0``) are read once and each is used for about one operation per
 byte, so the least time is ``(n_valid * B * KV * hd * 2 * itemsize + q + out
-+ pos) / 3.35 TB/s`` (:func:`bound_ms`).  The design: one thread block per
-(sequence, kv head) holding the group's G query heads, the caches read in
-their native ``(B, S, KV, hd)`` layout with 16-byte loads (the TPU wrapper
-transposed both caches on every call), empty slots never loaded, and the
-per-tile online-softmax update of ``csrc/attn_tile.cuh`` shared with the
-paged decode kernel.  Splitting a sequence across blocks is later work.
++ pos) / 3.35 TB/s`` (:func:`bound_ms`).  The first design (tiles staged as
+fp32 and folded in three barrier-separated phases) had no load in flight
+while a tile was computed and read q and K from shared memory for every
+multiply-add.  The design now (``csrc/decode_tile.cuh``): one block per
+(sequence, kv head) stages its tiles in their stored type with ``cp.async``
+into a ring of three, skipping empty slots, and folds them with the
+queries, the softmax state and the accumulators in registers.  The keys are
+not split over blocks: at B 32 one block a row beat every split count on
+the H100 (``PERF.md`` §5).  The caches are read in their native
+``(B, S, KV, hd)`` layout (the TPU wrapper transposed both on every call).
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the plain
 version.  ``decode_attention.launches`` counts kernel launches.
@@ -98,8 +102,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, block_k: int = 256):
     """One query token per row against a dense (ring) cache.  q (B, H, hd);
     k_cache, v_cache (B, S, KV, hd); pos (S,) int32, -1 where a slot is
     empty.  Returns (B, H, hd) in ``q.dtype``.  ``block_k`` is the
-    reference's tiling hint and cannot change the result: the kernel walks
-    64 slots a tile (32 at hd 128)."""
+    reference's tiling hint and cannot change the result: the kernel sizes
+    its own tiles (``decode_tile.cuh::tile_rows``)."""
     del block_k
     check_args(q, k_cache, v_cache, pos)
     if q.device.type == "cpu":

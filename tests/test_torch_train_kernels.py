@@ -3,7 +3,8 @@ tensors (the kernels' plain versions) against the reference's
 ``repro.kernels.ops`` (the Pallas kernels in interpret mode) and its oracles
 in ``repro.kernels.ref``, over the sweeps of ``tests/test_kernels.py``; ties,
 all ``-inf`` scores (the reference's padding quirk), ids past ``n_items``;
-the wrappers' argument checks, which run before any launch; the bounds.
+the Borda kernel's route plan and its grid route's arithmetic; the
+wrappers' argument checks, which run before any launch; the bounds.
 
 Tolerance: none.  Top-k values and indices and Borda points are exact (the
 points are small integers in fp32)."""
@@ -243,6 +244,60 @@ def test_borda_ids_past_n_items_and_the_width_quirk():
     assert got.tolist() == [5.0, 3.0, 4.0]   # id 5 and id 3 add nothing
     assert got.tolist() == borda_matrix(np.where(ballots < 3, ballots, -1), 3).tolist()
     assert borda_scores([[0, 1, 2], [2, 0]], [0, 1, 2]) == {0: 4.0, 1: 2.0, 2: 3.0}
+
+
+# (r, s, n, route): the optimizer's ballots; n_items at and past the
+# one-block limit; slots at and past it; the large timed shape; one wide
+# ballot; 2^22 ballots; items past the partials' cap; no ballot
+BORDA_ROUTES = [(4, 8, 8, "one_block"), (64, 64, 4096, "one_block"), (64, 64, 4097, "grid"),
+                (256, 64, 100, "one_block"), (257, 64, 100, "grid"), (4096, 64, 1024, "grid"),
+                (1, 65536, 65536, "grid"), (1 << 22, 8, 8, "grid"), (3, 5, 1 << 25, "grid"),
+                (0, 8, 8, "one_block")]
+
+
+@pytest.mark.parametrize("case", BORDA_ROUTES, ids=ident)
+def test_borda_plan_routes(case):
+    """One block where the counts fit shared memory and the slots are few
+    (so few that its 32-bit counts cannot overflow), else a grid whose runs of slots cover every slot, at most
+    GRID_MAX_SLOT_BLOCKS of them and their partials within
+    GRID_MAX_PARTIALS unless one run is all there can be."""
+    r, s, n, route = case
+    plan = bc.borda_plan(r, s, n)
+    assert plan.route == route
+    if route == "one_block":
+        assert plan.slot_blocks == 0
+        assert n <= bc.BLOCK_ITEMS and r * s <= bc.ONE_BLOCK_SLOTS
+        assert r * s * s <= 2 ** 28     # its 32-bit counts cannot overflow
+        return
+    per_block = -(-r * s // plan.slot_blocks)
+    assert 1 <= plan.slot_blocks <= bc.GRID_MAX_SLOT_BLOCKS
+    assert (plan.slot_blocks - 1) * per_block < r * s
+    assert plan.slot_blocks * n <= max(n, bc.GRID_MAX_PARTIALS)
+
+
+@pytest.mark.parametrize("shape", [(257, 64, 100), (300, 64, 300), (4, 16, 5000), (5000, 4, 9)],
+                         ids=ident)
+def test_borda_grid_partials_sum_to_the_points(shape):
+    """The grid route's arithmetic: each block counts its run of slots for
+    its range of items in integers, the partials are summed and rounded
+    once.  Equal to the plain version, ids past n_items counting nothing."""
+    r, s, n = shape
+    ballots = np.random.default_rng(r).integers(-1, 2 * n, size=(r, s)).astype(np.int32)
+    plan = bc.borda_plan(r, s, n)
+    assert plan.route == "grid"
+    flat = ballots.reshape(-1)
+    pts = s - np.arange(r * s) % s
+    per_block = -(-r * s // plan.slot_blocks)
+    partial = np.zeros((plan.slot_blocks, n), np.int64)
+    for sb in range(plan.slot_blocks):
+        run = slice(sb * per_block, (sb + 1) * per_block)
+        for lo in range(0, n, bc.BLOCK_ITEMS):
+            hi = min(n, lo + bc.BLOCK_ITEMS)
+            ids, p = flat[run], pts[run]
+            mine = (ids >= lo) & (ids < hi)
+            np.add.at(partial[sb], ids[mine], p[mine])
+    got = partial.sum(0).astype(np.float32)
+    np.testing.assert_array_equal(got, bc.borda_count_plain(torch.from_numpy(ballots), n).numpy())
 
 
 # -------------------------------------------------------------- wrappers

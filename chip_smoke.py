@@ -109,6 +109,26 @@ SWEEP = [(2, 4, 2, 16, 8, 9, 2), (3, 8, 2, 32, 16, 13, 3), (1, 4, 4, 16, 8, 5, 4
          (3, 4, 2, 8, 4, 16, 3), (2, 8, 8, 16, 8, 12, 2), (5, 6, 3, 8, 16, 24, 4),
          (2, 4, 4, 64, 16, 9, 3), (2, 8, 2, 128, 16, 9, 3), (3, 4, 2, 16, 1, 40, 9),
          (2, 16, 2, 32, 5, 20, 7)]
+# the paged walk's edges (each against the plain version in both types):
+# ctx_len 1 on the dummy block 0 (table all zero); ctx_len on a block and on
+# a tile boundary (64-row tiles at hd 64, 32 at hd 128); ctx_len = MAXB * bs;
+# bs 1 and 5 (blocks that straddle tiles); inf in every K slot and NaN in
+# every V slot past ctx_len; G 1, 2, 3, 4, 8 and 16; hd 8 to 128; the block
+# ids nearest NB - 1; one row of 4096 tokens
+PAGED_EDGES = ([dict(b=2, h=8, kv=2, hd=64, bs=16, nb=20, maxb=4, ctx=[1, 1], table="zero"),
+                dict(b=3, h=8, kv=2, hd=64, bs=16, nb=40, maxb=8, ctx=[32, 64, 128]),
+                dict(b=2, h=4, kv=1, hd=128, bs=16, nb=40, maxb=8, ctx=[32, 96]),
+                dict(b=2, h=8, kv=2, hd=64, bs=16, nb=40, maxb=6, ctx=[96, 96]),
+                dict(b=3, h=4, kv=2, hd=32, bs=1, nb=400, maxb=100, ctx=[1, 64, 100]),
+                dict(b=3, h=4, kv=2, hd=64, bs=5, nb=100, maxb=20, ctx=[3, 64, 97]),
+                dict(b=3, h=16, kv=4, hd=64, bs=16, nb=40, maxb=8, ctx=[20, 77, 128],
+                     fill="infnan")]
+               + [dict(b=2, h=2 * g, kv=2, hd=64, bs=16, nb=30, maxb=6, ctx=[50, 96])
+                  for g in (1, 2, 3, 4, 8, 16)]
+               + [dict(b=2, h=8, kv=2, hd=hd, bs=16, nb=30, maxb=6, ctx=[33, 90])
+                  for hd in (8, 16, 32, 64, 128)]
+               + [dict(b=2, h=8, kv=2, hd=64, bs=16, nb=1000, maxb=8, ctx=[100, 128], table="top"),
+                  dict(b=1, h=32, kv=8, hd=128, bs=16, nb=300, maxb=256, ctx=[4096])])
 # (b, h, kv, s, hd, window): tests/test_kernels.py's flash sweep (causal)
 FLASH_SWEEP = [(2, 4, 2, 128, 64, 0), (1, 4, 4, 256, 32, 0), (2, 8, 2, 128, 64, 64),
                (1, 2, 1, 96, 64, 32), (1, 2, 2, 160, 128, 0)]
@@ -140,6 +160,7 @@ DECODE_EDGES = [(1, 4, 1, 1024, 128, ("one", 777)),     # one valid slot in S 10
 # full-width attention shapes: stablelm-1.6b (G 1) and llama3-8b (G 4)
 FULL = {"stablelm-1.6b": dict(h=32, kv=32, hd=64), "llama3-8b": dict(h=32, kv=8, hd=128)}
 FULL_ROWS, FULL_BS, FULL_NB, FULL_MAXB = 32, 16, 768, 23
+FEW_ROWS = 4  # a few judge rationales decoding together
 DECODE_FULL = dict(b=32, s=1024, fill=600)
 FLASH_MONOLITHIC = dict(b=1, sq=2048, off=0, sk=2048)
 COUNTED = {"paged_attention": pa.paged_attention, "flash_attention": fa.flash_attention,
@@ -161,6 +182,23 @@ SSM_SWEEP = [(2, 128, 64, 16), (1, 64, 128, 8), (1, 48, 200, 4), (2, 40, 96, 32)
 # a ragged dv and xLSTM's head shape
 MLSTM_SWEEP = [(1, 2, 128, 32, 64), (2, 2, 64, 16, 16), (1, 1, 40, 8, 100),
                (1, 2, 24, 64, 64), (1, 1, 24, 128, 72), (1, 2, 48, 256, 512)]
+# (b, h, s, dqk, dv, gates): the chunkwise kernel's edges (chunks of
+# ml.CHUNK = 64 steps): S 1, T - 1, T, T + 1, 2T + 5; dv 72 and 100 (a
+# ragged column tile; rows of 100 the wrapper pads to 104 for the TMA
+# boxes); each qk dim (below 64 padded to 64); the stabiliser's paths:
+# forget gates far negative with input gates large, and input gates so low
+# that every row's stabiliser sits on the -50 floor
+MLSTM_EDGES = ([(1, 2, s, 64, 64, "std") for s in (1, 63, 64, 65, 133)]
+               + [(1, 2, 100, 32, 72, "std"), (1, 2, 100, 32, 100, "std")]
+               + [(1, 2, 70, d, 64, "std") for d in ml.SUPPORTED_QK_DIMS]
+               + [(2, 2, 130, 64, 64, "forget"), (2, 2, 130, 64, 64, "floor")])
+# the kernels against mlstm_chunkwise_plain: bf16 computes its algebra with
+# the operands it makes kept to about 16 bits (two bf16 each), so half of
+# SCAN_TOL's bf16 bound (what stays is mostly h's own rounding to bf16, one
+# step of 2^-8 where the two land on either side); fp32 steps per position,
+# so the reference's own 2e-3 between the two forms
+CHUNK_TOL = {torch.float32: dict(atol=2e-3, rtol=0.0),
+             torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 # full-width shapes when phase families did not run: Mixtral's router on
 # 16 x 256 tokens, Hymba's SSM on 8 x 1024, xLSTM's mLSTM on 8 x 4 heads x 256
 FALLBACK_FAMILY = dict(moe_logits=(4096, 8), ssm=(8, 1024, 1600, 16),
@@ -234,6 +272,27 @@ def paged_case(seed, b, h, kv, hd, bs, nb, maxb, dtype, device, ctx=None):
             torch.from_numpy(ctx.astype(np.int32)).to(device))
 
 
+def paged_edge_case(seed, e, dtype, device):
+    """paged_case for a PAGED_EDGES entry."""
+    b, maxb, nb, bs = e["b"], e["maxb"], e["nb"], e["bs"]
+    q, kp, vp, tables, ctx = paged_case(seed, b, e["h"], e["kv"], e["hd"], bs, nb, maxb, dtype,
+                                        device, ctx=e["ctx"])
+    live = tables != 0
+    if e.get("table") == "zero":
+        tables = torch.zeros_like(tables)
+    elif e.get("table") == "top":
+        top = nb - 1 - torch.arange(b * maxb, dtype=torch.int32, device=device).reshape(b, maxb)
+        tables = torch.where(live, top, tables)
+    if e.get("fill") == "infnan":
+        stale = torch.ones(nb, bs, dtype=torch.bool, device=device)
+        for r, n in enumerate(e["ctx"]):
+            p = torch.arange(n, device=device)
+            stale[tables[r, p // bs].long(), p % bs] = False
+        kp[stale] = math.inf
+        vp[stale] = math.nan
+    return q, kp, vp, tables, ctx
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -245,14 +304,16 @@ def check_close(got, want, dtype, what, tol=TOL) -> float:
 
 
 def time_ms(fn, flush, reps=15) -> float:
-    """Median over ``reps`` single launches by CUDA events, the L2 cache
-    overwritten before each: a caller finds its inputs cold (in the decode
-    step every layer reads its own arena)."""
+    """Median over ``reps`` single launches by CUDA events, L2 evicted before
+    each by reading ``flush`` (256 MB, five times L2): a caller finds its
+    inputs cold (in the decode step every layer reads its own arena).  The
+    flush reads and writes nothing back, so the dirty lines of the last
+    launch are written back during the flush, not inside the timed window."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum(dtype=torch.int64)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -274,6 +335,35 @@ def summary(name, source, replaces, path, shapes) -> dict:
                                                             "bound_ms", "bound_by", "library_ms")})
 
 
+def paged_full_width(arch, d, ctx, dtype, device, flush) -> dict:
+    """paged_attention at one full-width attention shape: checked, timed."""
+    rows = len(ctx)
+    args = paged_case(11, rows, d["h"], d["kv"], d["hd"], FULL_BS, FULL_NB, FULL_MAXB, dtype,
+                      device, ctx=ctx)
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    err = check_close(got, pa.paged_attention_plain(*args), dtype,
+                      f"paged_attention {arch} B{rows} {dtype}")
+    # the larger of bytes over the memory rate and the multiply-adds of q.k
+    # and p.v over the valid tokens, as operations, over the peak
+    t_bytes = pa.bound_ms(ctx, FULL_BS, d["h"], d["kv"], d["hd"], args[0].element_size())
+    t_ops = 1e3 * int(ctx.sum()) * d["h"] * d["hd"] * 2 * 2 / PEAK_FLOPS[dtype]
+    bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    # what a plain streaming read of as many bytes as the valid K and V rows
+    # reaches under the same timing
+    flat = torch.ones(2 * int(ctx.sum()) * d["kv"] * d["hd"], dtype=dtype, device=device)
+    stream_ms = time_ms(lambda: flat.sum(dtype=torch.float32), flush)
+    del flat
+    rec = dict(shape=f"{arch} B{rows} H{d['h']} KV{d['kv']} hd{d['hd']} "
+                     f"bs{FULL_BS} ctx<= {int(ctx.max())} mean {float(ctx.mean()):.0f}",
+               dtype=dtype_name(dtype), max_abs_err=err,
+               ms=time_ms(lambda: pa.paged_attention(*args), flush),
+               plain_ms=time_ms(lambda: pa.paged_attention_plain(*args), flush),
+               bound_ms=bound, bound_by=by, library_ms=None, stream_read_ms=stream_ms)
+    say("kernels.full_width", kernel="paged_attention", **rec)
+    return rec
+
+
 def kernel_paged(device, flush) -> dict:
     """paged_attention against paged_attention_plain on the card."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -285,36 +375,30 @@ def kernel_paged(device, flush) -> dict:
             err = check_close(got, pa.paged_attention_plain(*args), dtype,
                               f"paged_attention {shape} {dtype}")
             worst[dtype] = max(worst[dtype], err)
-    say("kernels.sweep", kernel="paged_attention", shapes=len(SWEEP),
+    edges = []
+    for i, e in enumerate(PAGED_EDGES):
+        rec = dict(edge=e)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_edge_case(200 + i, e, dtype, device)
+            got = pa.paged_attention(*args)
+            torch.cuda.synchronize()
+            err = check_close(got, pa.paged_attention_plain(*args), dtype,
+                              f"paged_attention edge {e} {dtype}")
+            worst[dtype] = max(worst[dtype], err)
+            rec[f"max_abs_err_{dtype_name(dtype)}"] = err
+        edges.append(rec)
+    say("kernels.sweep", kernel="paged_attention", shapes=len(SWEEP) + len(PAGED_EDGES),
         max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
-        tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16])
+        tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16], edges=edges)
 
     rng = np.random.default_rng(7)
     ctx = rng.integers(17, FULL_MAXB * FULL_BS + 1, size=FULL_ROWS)
     ctx[0] = FULL_MAXB * FULL_BS
     shapes = []
-    for arch, d in FULL.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            args = paged_case(11, FULL_ROWS, d["h"], d["kv"], d["hd"], FULL_BS, FULL_NB,
-                              FULL_MAXB, dtype, device, ctx=ctx)
-            got = pa.paged_attention(*args)
-            torch.cuda.synchronize()
-            err = check_close(got, pa.paged_attention_plain(*args), dtype,
-                              f"paged_attention {arch} {dtype}")
-            # the larger of bytes over the memory rate and the multiply-adds of
-            # q.k and p.v over the valid tokens, as operations, over the peak
-            t_bytes = pa.bound_ms(ctx, FULL_BS, d["h"], d["kv"], d["hd"],
-                                  args[0].element_size())
-            t_ops = 1e3 * int(ctx.sum()) * d["h"] * d["hd"] * 2 * 2 / PEAK_FLOPS[dtype]
-            bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            rec = dict(shape=f"{arch} B{FULL_ROWS} H{d['h']} KV{d['kv']} hd{d['hd']} "
-                             f"bs{FULL_BS} ctx<= {int(ctx.max())} mean {float(ctx.mean()):.0f}",
-                       dtype=dtype_name(dtype), max_abs_err=err,
-                       ms=time_ms(lambda: pa.paged_attention(*args), flush),
-                       plain_ms=time_ms(lambda: pa.paged_attention_plain(*args), flush),
-                       bound_ms=bound, bound_by=by, library_ms=None)
-            say("kernels.full_width", kernel="paged_attention", **rec)
-            shapes.append(rec)
+    for rows in (FULL_ROWS, FEW_ROWS):
+        for arch, d in FULL.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                shapes.append(paged_full_width(arch, d, ctx[:rows], dtype, device, flush))
     return summary("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_attention.py:68", "order_by", shapes)
 
@@ -491,7 +575,7 @@ def kernel_decode(device, flush) -> dict:
             t_ops = 1e3 * 4 * d["hd"] * fill * b * d["h"] / PEAK_FLOPS[dtype]
             bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
             # what a plain streaming read of as many bytes as the valid K and
-            # V rows reaches under the same timing (the flush leaves L2 dirty)
+            # V rows reaches under the same timing
             flat = torch.ones(2 * fill * b * d["kv"] * d["hd"], dtype=dtype, device=device)
             stream_ms = time_ms(lambda: flat.sum(dtype=torch.float32), flush)
             del flat
@@ -607,14 +691,34 @@ def kernel_ssm(device, flush, fam) -> dict:
                    "src/repro/kernels/ssm_scan.py:43", "families", shapes)
 
 
-def mlstm_inputs(seed, b, h, s, dqk, dv, dtype, device):
-    """As tests/test_kernels.py: forget gates shifted towards remembering."""
+# (forget, input) gate shifts: as tests/test_kernels.py (towards remembering);
+# forget far negative, input large; input low enough for the -50 floor
+MLSTM_GATES = {"std": (2.0, 0.0), "forget": (-8.0, 8.0), "floor": (-3.0, -60.0)}
+
+
+def mlstm_inputs(seed, b, h, s, dqk, dv, dtype, device, gates="std"):
+    """As tests/test_kernels.py: forget gates shifted towards remembering
+    (or by MLSTM_GATES[gates])."""
     rng = np.random.default_rng(seed)
     q, k = (randn(rng, (b, h, s, dqk), dtype, device) for _ in range(2))
     v = randn(rng, (b, h, s, dv), dtype, device)
-    i_g = randn(rng, (b, h, s), torch.float32, device)
-    f_g = randn(rng, (b, h, s), torch.float32, device) + 2.0
+    f_shift, i_shift = MLSTM_GATES[gates]
+    i_g = randn(rng, (b, h, s), torch.float32, device) + i_shift
+    f_g = randn(rng, (b, h, s), torch.float32, device) + f_shift
     return q, k, v, i_g, f_g
+
+
+def mlstm_check(args, dtype, what) -> tuple:
+    """The kernel against both plain versions: the per-step one within
+    SCAN_TOL, the chunkwise one within CHUNK_TOL.  Returns both errors."""
+    s = args[0].shape[2]
+    got = ml.mlstm_scan(*args, chunk=s)
+    torch.cuda.synchronize()
+    err = check_close(got, ml.mlstm_scan_plain(*args), dtype, f"mlstm_scan {what} {dtype}",
+                      SCAN_TOL["mlstm_scan"])
+    err_chunk = check_close(got, ml.mlstm_chunkwise_plain(*args), dtype,
+                            f"mlstm_scan {what} {dtype} vs chunkwise", CHUNK_TOL)
+    return got, err, err_chunk
 
 
 def kernel_mlstm(device, flush, fam) -> dict:
@@ -623,17 +727,25 @@ def kernel_mlstm(device, flush, fam) -> dict:
     and fp32."""
     tol = SCAN_TOL["mlstm_scan"]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (b, h, s, dqk, dv) in enumerate(MLSTM_SWEEP):
+    worst_chunk = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    edges = []
+    for i, shape in enumerate(MLSTM_SWEEP + MLSTM_EDGES):
+        rec = dict(shape=list(shape))
         for dtype in (torch.float32, torch.bfloat16):
-            args = mlstm_inputs(60 + i, b, h, s, dqk, dv, dtype, device)
-            got = ml.mlstm_scan(*args, chunk=s)
-            torch.cuda.synchronize()
-            err = check_close(got, ml.mlstm_scan_plain(*args), dtype,
-                              f"mlstm_scan {(b, h, s, dqk, dv)} {dtype}", tol)
+            args = mlstm_inputs(60 + i, *shape[:5], dtype, device, *shape[5:])
+            _, err, err_chunk = mlstm_check(args, dtype, shape)
             worst[dtype] = max(worst[dtype], err)
-    say("kernels.sweep", kernel="mlstm_scan", shapes=len(MLSTM_SWEEP),
+            worst_chunk[dtype] = max(worst_chunk[dtype], err_chunk)
+            rec[f"max_abs_err_{dtype_name(dtype)}"] = [err, err_chunk]
+        if i >= len(MLSTM_SWEEP):
+            edges.append(rec)
+    say("kernels.sweep", kernel="mlstm_scan", shapes=len(MLSTM_SWEEP) + len(MLSTM_EDGES),
         max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
-        tol_fp32=tol[torch.float32], tol_bf16=tol[torch.bfloat16])
+        tol_fp32=tol[torch.float32], tol_bf16=tol[torch.bfloat16],
+        vs_chunkwise_max_abs_err_fp32=worst_chunk[torch.float32],
+        vs_chunkwise_max_abs_err_bf16=worst_chunk[torch.bfloat16],
+        chunk_tol_fp32=CHUNK_TOL[torch.float32], chunk_tol_bf16=CHUNK_TOL[torch.bfloat16],
+        edges=edges)
 
     if fam:
         base, tag = [fam[k] for k in ("q", "k", "v", "i_g", "f_g")], fam["tag"]
@@ -645,13 +757,11 @@ def kernel_mlstm(device, flush, fam) -> dict:
         args = [t.to(dtype) for t in base[:3]] + base[3:]
         b, h, s, dqk = args[0].shape
         dv = args[2].shape[-1]
-        got = ml.mlstm_scan(*args, chunk=s)
-        torch.cuda.synchronize()
-        err = check_close(got, ml.mlstm_scan_plain(*args), dtype, f"mlstm_scan {tag} {dtype}",
-                          tol)
+        _, err, err_chunk = mlstm_check(args, dtype, tag)
         bound, by = ml.bound_ms(b, h, s, dqk, dv, dtype)
         rec = dict(shape=f"{tag}: B{b} H{h} S{s} dqk{dqk} dv{dv}", dtype=dtype_name(dtype),
-                   max_abs_err=err, ms=time_ms(lambda: ml.mlstm_scan(*args, chunk=s), flush),
+                   max_abs_err=err, max_abs_err_vs_chunkwise=err_chunk,
+                   ms=time_ms(lambda: ml.mlstm_scan(*args, chunk=s), flush),
                    plain_ms=time_ms(lambda: ml.mlstm_scan_plain(*args), flush),
                    bound_ms=bound, bound_by=by, library_ms=None)
         say("kernels.full_width", kernel="mlstm_scan", **rec)
@@ -833,7 +943,7 @@ def kernel_borda(device, flush, path) -> dict:
 
 
 def phase_kernels(device, cont_shapes, fam, train_path) -> list:
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device=device)  # read by time_ms
     return [kernel_paged(device, flush), kernel_flash(device, flush, cont_shapes),
             kernel_decode(device, flush), kernel_moe_gating(device, flush, fam.get("moe_gating")),
             kernel_ssm(device, flush, fam.get("ssm_scan")),
@@ -1137,6 +1247,9 @@ def family_kernel(name, ins, model, tag) -> dict:
         args = (ins["q"].float(), ins["k"].float(), ins["v"].float(), ins["i_g"], ins["f_g"])
         s = args[0].shape[2]
         h = ops.mlstm_scan(*args, chunk=min(64, s))
+        # and in bf16, the type xLSTM serves in: the chunkwise kernel
+        args_bf = tuple(t.bfloat16() for t in args[:3]) + args[3:]
+        h_bf = ops.mlstm_scan(*args_bf, chunk=min(64, s))
     torch.cuda.synchronize()
     launches = read_launches()                 # ---- and ends here
     assert launches[name] > 0, launches
@@ -1163,7 +1276,12 @@ def family_kernel(name, ins, model, tag) -> dict:
         torch.testing.assert_close(h, model["h"], **MODEL_TOL[name],
                                    msg=lambda m: f"mlstm_scan vs mlstm_sequence {tag}: {m}")
         err_model = max_err(h, model["h"])
-        extra = dict(model_tol=MODEL_TOL[name])
+        err_bf = check_close(h_bf, ml.mlstm_scan_plain(*args_bf), torch.bfloat16,
+                             f"mlstm_scan bf16 {tag}", SCAN_TOL[name])
+        err_bf_chunk = check_close(h_bf, ml.mlstm_chunkwise_plain(*args_bf), torch.bfloat16,
+                                   f"mlstm_scan bf16 {tag} vs chunkwise", CHUNK_TOL)
+        extra = dict(model_tol=MODEL_TOL[name], bf16_max_abs_err_vs_plain=err_bf,
+                     bf16_max_abs_err_vs_chunkwise=err_bf_chunk)
     say("families.kernel", kernel=name, shape=tag, launches=launches[name],
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_model_path=err_model, **extra)
     return launches
@@ -1719,11 +1837,22 @@ def traced(fn, card, tag, **extra) -> None:
 
 def phase_profile(device, card, seed) -> None:
     """Not part of the default run: trace flash attention and top-k at their
-    large timed shapes, decode attention at llama3-8b's timed shape, Borda
-    count at the optimizer's ballots (4 of 8 over 8 items), one generate of
-    the kernel engine at stablelm-1.6b's full width, then one training step
-    of the whole minicpm-2b as phase train runs it."""
-    d, f = FULL["llama3-8b"], DECODE_FULL
+    large timed shapes, decode and paged attention at llama3-8b's timed
+    shapes, the bf16 mLSTM scan at xLSTM's width, Borda count at the
+    optimizer's ballots (4 of 8 over 8 items), one generate of the kernel
+    engine at stablelm-1.6b's full width, then one training step of the
+    whole minicpm-2b as phase train runs it."""
+    d = FULL["llama3-8b"]
+    ctx = np.random.default_rng(7).integers(17, FULL_MAXB * FULL_BS + 1, size=FULL_ROWS)
+    pargs = paged_case(11, FULL_ROWS, d["h"], d["kv"], d["hd"], FULL_BS, FULL_NB, FULL_MAXB,
+                       torch.bfloat16, device, ctx=ctx)
+    traced(lambda: pa.paged_attention(*pargs), card, "profile.paged_attention",
+           arch="llama3-8b", dtype="bfloat16", rows=FULL_ROWS)
+    margs = mlstm_inputs(69, *FALLBACK_FAMILY["mlstm"], torch.bfloat16, device)
+    traced(lambda: ml.mlstm_scan(*margs), card, "profile.mlstm_scan", dtype="bfloat16",
+           shape=list(FALLBACK_FAMILY["mlstm"]))
+    del pargs, margs
+    f = DECODE_FULL
     dargs = decode_inputs(17, f["b"], d["h"], d["kv"], f["s"], d["hd"], f["fill"],
                           torch.bfloat16, device)
     traced(lambda: da.decode_attention(*dargs), card, "profile.decode_attention",

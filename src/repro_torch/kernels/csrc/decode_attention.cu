@@ -14,7 +14,8 @@
 // group's G query heads) walks all of the sequence's slots in tiles
 // (decode_tile.cuh::tile_rows) and writes its heads' output.  A block stages
 // its tiles in their stored type with 16-byte cp.async into a ring of
-// kStages: the next two tiles are in flight while one is folded.  A tile's
+// kStages (decode_tile.cuh::ring_walk, the paged kernel's loop too): the
+// next two tiles are in flight while one is folded.  A tile's
 // pos values arrive by 4-byte cp.async one ring ahead of its rows, so the
 // rows of empty slots (pos < 0) are never loaded and a tile's pos is read
 // from memory once.  The fold keeps the queries, the softmax state and the
@@ -35,10 +36,15 @@
 
 namespace repro {
 
-using dtile::kStages;
 using dtile::kThreads;
 
-constexpr int kPosSlots = 2 * kStages - 1;  // a tile's pos lands kStages - 1 groups early
+// Row p of a sequence is slot p of its cache; empty where pos[p] < 0.
+struct DenseRows {
+  const int* pos;
+  size_t row_stride;  // elements between slots
+  __device__ const int* id(int p) const { return pos + p; }
+  __device__ size_t at(int p, int) const { return (size_t)p * row_stride; }
+};
 
 // 3 blocks an SM (170 registers a thread) up to 4 heads a block, 2 for 8
 template <typename T, int HD, int GC>
@@ -47,11 +53,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                         const T* __restrict__ v_cache, const int* __restrict__ pos,
                         T* __restrict__ out, int n_heads, int n_kv, int n_slots, float scale) {
   using C = dtile::Cfg<T, HD, GC>;
-  constexpr int TILE = C::TILE, TILE_CH = C::TILE_CH, NCH = C::NCH, VN = C::VN;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* kbuf = reinterpret_cast<uint4*>(smem);      // (kStages, TILE_CH)
-  uint4* vbuf = kbuf + kStages * TILE_CH;            // (kStages, TILE_CH)
-  int* pos_s = reinterpret_cast<int*>(vbuf + kStages * TILE_CH);  // (kPosSlots, TILE)
 
   const int g = n_heads / n_kv;
   const int n_hc = (g + GC - 1) / GC;
@@ -62,90 +64,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int b = bid / n_kv;
   const int head0 = kvh * g + hc * GC;  // this block's first query head
   const int n_here = min(GC, g - hc * GC);
-  const int tid = threadIdx.x;
-  const int gi = tid / C::L, k = tid % C::L;
+  const int gi = threadIdx.x / C::L, lane = threadIdx.x % C::L;
 
-  const int n_tiles = (n_slots + TILE - 1) / TILE;
   const size_t row_stride = (size_t)n_kv * HD;
   const size_t seq_off = (size_t)b * n_slots * row_stride + (size_t)kvh * HD;
-  const T* k_seq = k_cache + seq_off;
-  const T* v_seq = v_cache + seq_off;
-
-  auto load_pos = [&](int t) {
-    if (t >= n_tiles) return;
-    int* dst = pos_s + (t % kPosSlots) * TILE;
-    const int s0 = t * TILE;
-    for (int r = tid; r < TILE; r += kThreads) {
-      if (s0 + r < n_slots)
-        dtile::cp_async4(dst + r, pos + s0 + r);
-      else
-        dst[r] = -1;
-    }
-  };
-  auto load_kv = [&](int t) {
-    if (t >= n_tiles) return;
-    const int* ps = pos_s + (t % kPosSlots) * TILE;
-    const int s0 = t * TILE;
-    uint4* kd = kbuf + (t % kStages) * TILE_CH;
-    uint4* vd = vbuf + (t % kStages) * TILE_CH;
-#pragma unroll
-    for (int m = 0; m < C::CPT; ++m) {
-      const int i = tid + m * kThreads;
-      const int r = i / NCH, c = i - r * NCH;
-      if (ps[r] >= 0) {
-        const size_t off = (size_t)(s0 + r) * row_stride + (size_t)c * VN;
-        const int at = C::swz(r, c);
-        mma::cp_async16(kd + at, k_seq + off);
-        mma::cp_async16(vd + at, v_seq + off);
-      }
-    }
-  };
-
-  // Group u of copies holds the rows of tile u and the pos of tile
-  // u + kStages - 1, which load_kv needs right after group u has landed.
-  // The queries load while the first tiles' pos are in flight.
-  for (int t = 0; t < kStages - 1; ++t) load_pos(t);
-  mma::cp_async_commit();
   dtile::GroupState<T, HD, GC> st;
-  st.init(q + ((size_t)b * n_heads + head0) * HD, n_here, scale, k);
-  mma::cp_async_wait<0>();
-  __syncthreads();
-  for (int t = 0; t < kStages - 1; ++t) {
-    load_kv(t);
-    load_pos(t + kStages - 1);
-    mma::cp_async_commit();
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    mma::cp_async_wait<kStages - 2>();  // group t has landed
-    __syncthreads();                    // ... for every thread, and tile t - 1 is folded
-    load_kv(t + kStages - 1);
-    load_pos(t + 2 * kStages - 2);
-    mma::cp_async_commit();
-    const int* ps = pos_s + (t % kPosSlots) * TILE;
-    st.fold(kbuf + (t % kStages) * TILE_CH, vbuf + (t % kStages) * TILE_CH, gi, k,
-            [&](int r) { return ps[r] >= 0; });
-  }
-  mma::cp_async_wait<0>();
-  __syncthreads();  // the ring is free for block_combine
+  dtile::ring_walk(st, smem, k_cache + seq_off, v_cache + seq_off, n_slots,
+                   DenseRows{pos, row_stride}, q + ((size_t)b * n_heads + head0) * HD, n_here,
+                   scale, gi, lane);
 
   T* o = out + ((size_t)b * n_heads + head0) * HD;
-  st.block_combine(reinterpret_cast<float*>(smem), gi, k, [&](int h, int d, float a, float l) {
+  st.block_combine(reinterpret_cast<float*>(smem), gi, lane, [&](int h, int d, float a, float l) {
     if (h < n_here) from_float(o + h * HD + d, a / fmaxf(l, 1e-30f));
   });
 }
 
 template <typename T, int HD, int GC>
-size_t smem_bytes() {
-  using C = dtile::Cfg<T, HD, GC>;
-  const size_t ring = 2 * kStages * C::TILE_CH * 16 + kPosSlots * C::TILE * sizeof(int);
-  const size_t red = C::RED_FLOATS * sizeof(float);
-  return ring > red ? ring : red;
-}
-
-template <typename T, int HD, int GC>
 int launch(const void* q, const void* k_cache, const void* v_cache, const int* pos, void* out,
            int n_rows, int n_heads, int n_kv, int n_slots, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD, GC>();
+  constexpr size_t smem = dtile::ring_smem_bytes<T, HD, GC>();
   if (smem > dtile::kMaxSmem) return -2;
   auto kernel = decode_attention_kernel<T, HD, GC>;
   if (smem > 48 * 1024) {

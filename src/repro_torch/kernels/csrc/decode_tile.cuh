@@ -23,12 +23,22 @@
 // L neighbouring chunks; Cfg::swz places chunk c of row r so that the 8
 // lanes of each quarter warp hit 8 different 16-byte bank groups.
 //
+// ring_walk() stages the tiles with 16-byte cp.async into a ring of kStages
+// in the stored type, so the next kStages - 1 tiles are in flight while one
+// is folded.  Where row p lives is the caller's: a row map gives, for each
+// p, one int that says where the row is (a pos, a pool block id) or that it
+// is empty (< 0), and the row's offset from that int.  That int arrives by
+// 4-byte cp.async one ring ahead of its row, so an empty row (or one past
+// the last) is never fetched, and inf or NaN in it is never read.
+//
 // block_combine() merges the NG group states of a block into one (m, l, acc)
 // per head; out = acc / max(l, 1e-30), so a head with no valid row
 // (m = -1e30, l = 0, acc = 0) gives exactly 0.
 //
-// Users: the dense ring-cache decode kernel (decode_attention.cu), which
-// stages tiles with cp.async in a ring of kStages and flags rows by pos.
+// Users: the dense ring-cache decode kernel (decode_attention.cu), whose row
+// p is slot p of the sequence's cache, empty where pos[p] < 0, and the paged
+// decode kernel (paged_attention.cu), whose row p is slot p % bs of pool
+// block tables[b, p / bs], empty from ctx_len on.
 #pragma once
 
 #include <cstdint>
@@ -51,12 +61,6 @@ constexpr size_t kMaxSmem = 232448;  // bytes one block may use on sm_90
 
 // Rows (tokens) per tile: 8 KB of bf16 K rows from hd 32 up, 128 rows below.
 constexpr int tile_rows(int hd) { return hd >= 32 ? 4096 / hd : 128; }
-
-// 4 bytes global -> shared through L1; lands at cp_async_wait.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(mma::smem_u32(dst)), "l"(src)
-               : "memory");
-}
 
 // A 16-byte chunk of stored values unpacked to fp32.
 template <typename T>
@@ -279,6 +283,96 @@ struct GroupState {
     }
   }
 };
+
+constexpr int kIdSlots = 2 * kStages - 1;  // a tile's row ids land kStages - 1 groups early
+
+// Bytes of shared memory ring_walk() and then block_combine() use.
+template <typename T, int HD, int GC>
+constexpr size_t ring_smem_bytes() {
+  using C = Cfg<T, HD, GC>;
+  constexpr size_t ring = 2 * kStages * C::TILE_CH * 16 + kIdSlots * C::TILE * sizeof(int);
+  constexpr size_t red = C::RED_FLOATS * sizeof(float);
+  return ring > red ? ring : red;
+}
+
+// Fold rows 0 .. n_rows - 1 of one (sequence, kv head) into st, tile by
+// tile, through a cp.async ring in smem (ring_smem_bytes() bytes, 16-byte
+// aligned).  Rows is the row map:
+//   const int* id(int p)       the int that says where row p lives; < 0: empty
+//   size_t at(int p, int id)   the offset of row p, in elements, from k and v
+// k, v: this kv head's first value in the caches (row offsets are added).
+// st is initialised here from q_rows (see GroupState::init) while the first
+// tiles' ids are in flight.  Every thread of the block calls it; on return
+// every copy has landed and smem is free for block_combine().
+template <typename T, int HD, int GC, class Rows>
+__device__ __forceinline__ void ring_walk(GroupState<T, HD, GC>& st, unsigned char* smem,
+                                          const T* __restrict__ k, const T* __restrict__ v,
+                                          int n_rows, const Rows& rows, const T* q_rows,
+                                          int n_here, float scale, int gi, int lane) {
+  using C = Cfg<T, HD, GC>;
+  constexpr int TILE = C::TILE, TILE_CH = C::TILE_CH, NCH = C::NCH, VN = C::VN;
+  uint4* kbuf = reinterpret_cast<uint4*>(smem);                 // (kStages, TILE_CH)
+  uint4* vbuf = kbuf + kStages * TILE_CH;                       // (kStages, TILE_CH)
+  int* id_s = reinterpret_cast<int*>(vbuf + kStages * TILE_CH);  // (kIdSlots, TILE)
+  const int tid = threadIdx.x;
+  const int n_tiles = n_rows > 0 ? (n_rows + TILE - 1) / TILE : 0;
+
+  auto load_ids = [&](int t) {
+    if (t >= n_tiles) return;
+    int* dst = id_s + (t % kIdSlots) * TILE;
+    for (int r = tid; r < TILE; r += kThreads) {
+      const int p = t * TILE + r;
+      if (p < n_rows)
+        mma::cp_async4(dst + r, rows.id(p));
+      else
+        dst[r] = -1;
+    }
+  };
+  auto load_kv = [&](int t) {
+    if (t >= n_tiles) return;
+    const int* ids = id_s + (t % kIdSlots) * TILE;
+    uint4* kd = kbuf + (t % kStages) * TILE_CH;
+    uint4* vd = vbuf + (t % kStages) * TILE_CH;
+#pragma unroll
+    for (int m = 0; m < C::CPT; ++m) {
+      const int i = tid + m * kThreads;
+      const int r = i / NCH, c = i - r * NCH;
+      const int id = ids[r];
+      if (id >= 0) {
+        const size_t off = rows.at(t * TILE + r, id) + (size_t)c * VN;
+        const int to = C::swz(r, c);
+        mma::cp_async16(kd + to, k + off);
+        mma::cp_async16(vd + to, v + off);
+      }
+    }
+  };
+
+  // Group u of copies holds the rows of tile u and the ids of tile
+  // u + kStages - 1, which load_kv needs right after group u has landed.
+  // The queries load while the first tiles' ids are in flight.
+  for (int t = 0; t < kStages - 1; ++t) load_ids(t);
+  mma::cp_async_commit();
+  st.init(q_rows, n_here, scale, lane);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  for (int t = 0; t < kStages - 1; ++t) {
+    load_kv(t);
+    load_ids(t + kStages - 1);
+    mma::cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<kStages - 2>();  // group t has landed
+    __syncthreads();                    // ... for every thread, and tile t - 1 is folded
+    load_kv(t + kStages - 1);
+    load_ids(t + 2 * kStages - 2);
+    mma::cp_async_commit();
+    const int* ids = id_s + (t % kIdSlots) * TILE;
+    st.fold(kbuf + (t % kStages) * TILE_CH, vbuf + (t % kStages) * TILE_CH, gi, lane,
+            [&](int r) { return ids[r] >= 0; });
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for block_combine
+}
 
 }  // namespace dtile
 }  // namespace repro

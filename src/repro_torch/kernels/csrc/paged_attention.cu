@@ -7,120 +7,130 @@
 //   ctx_len  (B) int32               valid tokens per sequence, >= 1
 //   out      (B, H, hd)              in q's type
 //
-// One thread block per (sequence, kv head).  The block reads its own table
-// row and walks only the ceil(ctx_len / bs) live table slots, in tiles of
-// TILE tokens; a token at position p lives in block tables[b, p / bs], slot
-// p % bs, and its hd values for one kv head are contiguous in the pool's
-// native layout, so a row is fetched with 16-byte loads and no transpose of
-// the pool is ever made.  Tokens at positions >= ctx_len are never loaded:
-// their rows are zero-filled in shared memory and their weight is exactly 0,
-// so stale values in a reused block cannot reach the result.  The G = H / KV
-// query heads of the group share each staged tile.  All arithmetic is fp32.
+// Replaces the Pallas kernel repro/kernels/paged_attention.py::
+// paged_attention.  Bound by bytes: each valid token's K and V rows are read
+// once and used for about one multiply-add per byte and head.
+//
+// Design: the dense decode kernel's walk (decode_attention.cu, the same
+// decode_tile.cuh::ring_walk) with another row map.  One block per
+// (sequence, kv head, chunk of at most 8 of the group's G query heads) walks
+// the sequence's first n = min(ctx_len, MAXB * bs) positions in tiles.  Row
+// p lives in pool block tables[b, p / bs], slot p % bs, at
+// (blk * bs + p % bs) * KV * hd + kvh * hd in the pool's native layout, so a
+// row's hd values are one contiguous run and no copy of the pool is made.
+// Each row's block id arrives by 4-byte cp.async one ring ahead of its K and
+// V rows (a table entry is read from memory once and from L1 by the other
+// rows of its block); the rows themselves are staged in their stored type
+// with 16-byte cp.async into a ring of kStages, the next two tiles in flight
+// while one is folded.  Positions at or past n get no id and are never
+// fetched, so stale values in a reused block, inf and NaN included, never
+// reach the result.  The queries, the softmax state and the accumulators stay
+// in registers (decode_tile.cuh), so each staged element crosses shared
+// memory once per block, whatever G is.  All arithmetic is fp32 (no TF32).
+// The keys are not split over blocks (a split lost at every shape a caller
+// of the dense kernel makes; PERF.md, section 6).
 //
 // Plain C interface, loaded with ctypes.  The launch goes to the stream it is
 // given, allocates nothing and does not synchronise.
 
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include "decode_tile.cuh"
 
 namespace repro {
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+using dtile::kThreads;
+
+// Row p of a sequence is slot p % bs of pool block table[p / bs].
+struct PagedRows {
+  const int* table;   // this sequence's row of tables
+  int bs;
+  size_t row_stride;  // elements between slots of the pool
+  __device__ const int* id(int p) const { return table + p / bs; }
+  __device__ size_t at(int p, int blk) const {
+    return ((size_t)blk * bs + (size_t)(p % bs)) * row_stride;
+  }
+};
+
+// 3 blocks an SM up to 4 heads a block, 2 for 8 (as the dense kernel)
+template <typename T, int HD, int GC>
+__global__ void __launch_bounds__(kThreads, GC <= 4 ? 3 : 2)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool, const int* __restrict__ tables,
-                       const int* __restrict__ ctx_len, T* __restrict__ out,
-                       int n_heads, int n_kv, int bs, int maxb, float scale) {
-  constexpr int TILE = TileCfg<HD>::TILE;
-  constexpr int LD = TileCfg<HD>::LD;
-  constexpr int VN = Vec16<T>::N;   // elements per 16-byte load
-  constexpr int VPR = HD / VN;      // 16-byte loads per token row
+                       const int* __restrict__ ctx_len, T* __restrict__ out, int n_heads,
+                       int n_kv, int bs, int maxb, float scale) {
+  using C = dtile::Cfg<T, HD, GC>;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  extern __shared__ float smem[];
   const int g = n_heads / n_kv;
-  const int b = blockIdx.x / n_kv;
-  const int kvh = blockIdx.x - b * n_kv;
-  const int tid = threadIdx.x;
+  const int n_hc = (g + GC - 1) / GC;
+  int bid = blockIdx.x;
+  const int hc = bid % n_hc;
+  bid /= n_hc;
+  const int kvh = bid % n_kv;
+  const int b = bid / n_kv;
+  const int head0 = kvh * g + hc * GC;  // this block's first query head
+  const int n_here = min(GC, g - hc * GC);
+  const int gi = threadIdx.x / C::L, lane = threadIdx.x % C::L;
 
-  float* k_s = smem;
-  float* v_s = k_s + TILE * LD;
-  int* valid_s = reinterpret_cast<int*>(v_s + TILE * LD);
-  AttnState st = attn_state_carve<HD>(reinterpret_cast<float*>(valid_s + TILE), g);
-
-  attn_state_init<HD>(st, g);
-  const T* q_row = q + ((size_t)b * n_heads + (size_t)kvh * g) * HD;
-  for (int i = tid; i < g * HD; i += kThreads) st.q[i] = to_float(q_row[i]) * scale;
-
-  const int* table = tables + (size_t)b * maxb;
   const int n_ctx = min(ctx_len[b], maxb * bs);
-  const size_t slot_stride = (size_t)n_kv * HD;
-  const size_t head_off = (size_t)kvh * HD;
-  __syncthreads();
+  const size_t row_stride = (size_t)n_kv * HD;
+  dtile::GroupState<T, HD, GC> st;
+  dtile::ring_walk(st, smem, k_pool + (size_t)kvh * HD, v_pool + (size_t)kvh * HD, n_ctx,
+                   PagedRows{tables + (size_t)b * maxb, bs, row_stride},
+                   q + ((size_t)b * n_heads + head0) * HD, n_here, scale, gi, lane);
 
-  for (int t0 = 0; t0 < n_ctx; t0 += TILE) {
-    // stage the tile: one 16-byte load of K and one of V per (token, chunk)
-    for (int i = tid; i < TILE * VPR; i += kThreads) {
-      const int t = i / VPR, c = i - t * VPR;
-      const int pos = t0 + t;
-      float kf[VN], vf[VN];
-      if (pos < n_ctx) {
-        const int blk = table[pos / bs];
-        const size_t off =
-            ((size_t)blk * bs + (size_t)(pos % bs)) * slot_stride + head_off + (size_t)c * VN;
-        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(k_pool + off), kf);
-        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(v_pool + off), vf);
-      } else {
-#pragma unroll
-        for (int j = 0; j < VN; ++j) kf[j] = vf[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        k_s[t * LD + c * VN + j] = kf[j];
-        v_s[t * LD + c * VN + j] = vf[j];
-      }
-    }
-    for (int t = tid; t < TILE; t += kThreads) valid_s[t] = (t0 + t < n_ctx) ? 1 : 0;
-    __syncthreads();
-    attn_tile_update<HD>(st, k_s, v_s, valid_s, g);
-  }
-
-  T* out_row = out + ((size_t)b * n_heads + (size_t)kvh * g) * HD;
-  attn_finish<HD>(st, g, [&](int idx, float x) { from_float(out_row + idx, x); });
+  T* o = out + ((size_t)b * n_heads + head0) * HD;
+  st.block_combine(reinterpret_cast<float*>(smem), gi, lane, [&](int h, int d, float a, float l) {
+    if (h < n_here) from_float(o + h * HD + d, a / fmaxf(l, 1e-30f));
+  });
 }
 
-template <int HD>
-size_t smem_bytes(int g) {
-  return sizeof(float) * (2 * TileCfg<HD>::TILE * TileCfg<HD>::LD + attn_state_floats<HD>(g)) +
-         sizeof(int) * TileCfg<HD>::TILE;
-}
-
-template <typename T, int HD>
+template <typename T, int HD, int GC>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
            const int* ctx_len, void* out, int n_rows, int n_heads, int n_kv, int bs, int maxb,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>(n_heads / n_kv);
-  if (smem > kMaxSmem) return -2;
-  auto kernel = paged_attention_kernel<T, HD>;
+  constexpr size_t smem = dtile::ring_smem_bytes<T, HD, GC>();
+  if (smem > dtile::kMaxSmem) return -2;
+  auto kernel = paged_attention_kernel<T, HD, GC>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<n_rows * n_kv, kThreads, smem, stream>>>(
+  const int g = n_heads / n_kv;
+  const long long blocks = (long long)n_rows * n_kv * ((g + GC - 1) / GC);
+  if (blocks > 0x7fffffffLL) return -2;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       tables, ctx_len, static_cast<T*>(out), n_heads, n_kv, bs, maxb, scale);
   return (int)cudaGetLastError();
+}
+
+// GC, the query heads a block holds: 1, 4 (G 2 to 4, spare heads masked) or
+// 8 (larger groups take several blocks of 8).
+template <typename T, int HD>
+int dispatch_gc(const void* q, const void* k_pool, const void* v_pool, const int* tables,
+                const int* ctx_len, void* out, int n_rows, int n_heads, int n_kv, int bs,
+                int maxb, float scale, cudaStream_t stream) {
+  const int g = n_heads / n_kv;
+#define REPRO_GC_CASE(N)                                                                      \
+  return launch<T, HD, N>(q, k_pool, v_pool, tables, ctx_len, out, n_rows, n_heads, n_kv, bs, \
+                          maxb, scale, stream)
+  if (g <= 1) REPRO_GC_CASE(1);
+  if (g <= 4) REPRO_GC_CASE(4);
+  REPRO_GC_CASE(8);
+#undef REPRO_GC_CASE
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k_pool, const void* v_pool, const int* tables,
                 const int* ctx_len, void* out, int n_rows, int n_heads, int n_kv, int bs, int maxb,
                 float scale, cudaStream_t stream) {
-#define REPRO_HD_CASE(N)                                                                      \
-  case N:                                                                                     \
-    return launch<T, N>(q, k_pool, v_pool, tables, ctx_len, out, n_rows, n_heads, n_kv, bs,   \
-                        maxb, scale, stream)
+#define REPRO_HD_CASE(N)                                                                        \
+  case N:                                                                                       \
+    return dispatch_gc<T, N>(q, k_pool, v_pool, tables, ctx_len, out, n_rows, n_heads, n_kv, bs, \
+                             maxb, scale, stream)
   switch (hd) {
     REPRO_HD_CASE(8);
     REPRO_HD_CASE(16);
@@ -136,8 +146,8 @@ int dispatch_hd(int hd, const void* q, const void* k_pool, const void* v_pool, c
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t when
-// the launch was refused, -1 for an unsupported head_dim or dtype, -2 when the
-// query group needs more shared memory than a block may have.
+// the launch was refused, -1 for an unsupported head_dim or dtype, -2 for a
+// grid or shared-memory size out of range.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                                       const void* tables, const void* ctx_len, void* out,
                                       int n_rows, int n_heads, int n_kv, int hd, int bs, int maxb,

@@ -11,15 +11,21 @@ once (a token's ``hd`` values for one kv head are a contiguous run, so a
 block's invalid tail need not be fetched), so the least time is
 ``(sum_b ctx_b * KV * hd * 2 * itemsize + q + out + live table entries +
 ctx_len) / 3.35 TB/s``; its two products are about one operation per byte,
-far below what the card can do per byte moved.  The design answers with: one thread block per
-(sequence, kv head) that walks only the live table slots (the TPU grid
-fetched and masked all ``MAXB``); the pool read in its native
-``(NB, bs, KV, hd)`` layout with 16-byte loads (the TPU wrapper transposed
-both arenas on every call); each staged tile shared by the G query heads of
-the group; fp32 scores, running max, sum and accumulator in shared memory.
-Splitting one sequence's run across blocks, asynchronous staging and
-tensor-core products are left for later work; :func:`bound_ms` gives the
-bound to hold measured times against.
+far below what the card can do per byte moved.  The design is the dense
+decode kernel's (``csrc/decode_tile.cuh``: one ``ring_walk`` loop, two row
+maps): one thread block per (sequence, kv head, chunk of up to 8 query
+heads) walks only the row's first ``min(ctx_len, MAXB * bs)`` positions
+(the TPU grid fetched and masked all ``MAXB`` blocks); each position's
+block id arrives by ``cp.async`` one ring ahead of its K and V rows, which
+are staged in their stored type from the pool's native ``(NB, bs, KV, hd)``
+layout (the TPU wrapper transposed both arenas on every call) into a ring
+of three tiles, so two are in flight while one is folded; q, the running
+max and sum and the accumulators stay in registers in fp32, and each staged
+element is read once for all the query heads of the group.  The first
+design staged each tile with synchronous loads, unpacked it to
+fp32 in shared memory and kept the state there.  The keys are not split
+across blocks.  :func:`bound_ms` gives the bound to hold measured times
+against.
 
 A CUDA tensor goes to the kernel or raises; only a CPU tensor takes the plain
 version.  ``paged_attention.launches`` counts kernel launches.

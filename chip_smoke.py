@@ -175,9 +175,33 @@ SCAN_TOL = {"ssm_scan": {torch.float32: dict(atol=1e-4, rtol=0.0),
                            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}}
 # (t, e, k): test_moe_gating's sweep, then a tile boundary and Mixtral's router
 GATING_SWEEP = [(100, 8, 2), (256, 16, 4), (40, 4, 1), (2049, 8, 2), (300, 64, 8)]
+# (t, e, k, logits): the routes' edges (gating_plan), each in fp32 and bf16:
+# T 1; one block's tokens and one past (a cluster of two); T at the
+# one-launch limit and one past it (a grid whose last block holds one
+# token); E 1, k 1; E 256, k 8 in one block, in a full cluster and on the
+# grid; rows with every expert tied (so ties in bf16 too); every token's
+# first choice on one expert; Mixtral's router over a 16 x 2048 prefill
+GATING_EDGES = [(1, 8, 2, "random"), (256, 8, 2, "random"), (257, 8, 2, "random"),
+                (mg.one_launch_limit(8, 2), 8, 2, "random"),
+                (mg.one_launch_limit(8, 2) + 1, 8, 2, "random"), (300, 1, 1, "random"),
+                (64, 256, 8, "random"), (mg.one_launch_limit(256, 8), 256, 8, "random"),
+                (600, 256, 8, "random"), (4096, 8, 2, "tied"),
+                (mg.one_launch_limit(8, 2) + 256, 8, 1, "one_expert"), (32768, 8, 2, "random")]
+# Mixtral's router over a prefill of 16 rows of 2048 tokens: the grid route
+GATING_PREFILL = dict(t=32768, e=8, k=2)
 # (b, s, d, n): test_ssm_scan's sweep, then every built state size, a ragged D
 SSM_SWEEP = [(2, 128, 64, 16), (1, 64, 128, 8), (1, 48, 200, 4), (2, 40, 96, 32),
              (1, 33, 130, 64)]
+# (b, s, d, n, inputs): the kernel's edges, each in fp32 and bf16: S 1 and
+# one past the staging depth; D 1 and 1601 (no 16-byte rows: copies of one
+# value); N 4 and 64 at B 16; dt * a so negative that every decay flushes to 0;
+# a = 0; one sequence of x all 0
+SSM_EDGES = [(2, 1, 64, 16, "std"), (2, ss.STEPS + 1, 64, 16, "std"), (3, 40, 1, 16, "std"),
+             (2, 40, 1601, 16, "std"), (16, 64, 96, 4, "std"), (16, 64, 96, 64, "std"),
+             (2, 64, 128, 16, "flush"), (2, 64, 128, 16, "a_zero"),
+             (2, 64, 128, 16, "x_zero")]
+# Hymba's layer 0 on the families phase's probe batch (16 x 128 tokens)
+HYMBA_LAYER0 = (16, 128, 1600, 16)
 # (b, h, s, dqk, dv): test_mlstm_scan's sweep, then the other built qk dims,
 # a ragged dv and xLSTM's head shape
 MLSTM_SWEEP = [(1, 2, 128, 32, 64), (2, 2, 64, 16, 16), (1, 1, 40, 8, 100),
@@ -605,9 +629,19 @@ def gating_check(logits, k, what) -> float:
     return err
 
 
+def gating_edge_logits(seed, t, e, kind, dtype, device):
+    lg = randn(np.random.default_rng(seed), (t, e), torch.float32, device)
+    if kind == "tied":
+        lg[:] = 0.5
+    elif kind == "one_expert":
+        lg[:, -1] = 10.0
+    return lg.to(dtype)
+
+
 def kernel_moe_gating(device, flush, fam) -> dict:
-    """moe_gating against moe_gating_plain on the card: the sweep, ties, then
-    Mixtral's router logits from phase families."""
+    """moe_gating against moe_gating_plain on the card: the sweep, ties, the
+    routes' edges, then Mixtral's router logits from phase families and over
+    a 16 x 2048 prefill."""
     worst = 0.0
     for i, (t, e, k) in enumerate(GATING_SWEEP):
         for dtype in (torch.float32, torch.bfloat16):
@@ -618,24 +652,39 @@ def kernel_moe_gating(device, flush, fam) -> dict:
     ties[64:128, ::2] = 2.0                    # four-way ties at the top
     worst = max(worst, gating_check(ties, 2, "moe_gating ties"))
     assert mg.moe_gating(ties, 2)[0][0].tolist() == [0, 1], "a tie went to a higher index"
-    say("kernels.sweep", kernel="moe_gating", shapes=len(GATING_SWEEP) + 1,
-        max_abs_err_gates=worst, ids_and_ranks_exact=True, tol_gates=1e-6)
+    edges = []
+    for i, (t, e, k, kind) in enumerate(GATING_EDGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            lg = gating_edge_logits(130 + i, t, e, kind, dtype, device)
+            worst = max(worst, gating_check(lg, k, f"moe_gating edge {(t, e, k, kind)} {dtype}"))
+        edges.append(dict(t=t, e=e, k=k, logits=kind, plan=mg.gating_plan(t, e, k)._asdict()))
+    say("kernels.sweep", kernel="moe_gating", shapes=len(GATING_SWEEP) + 1 + len(GATING_EDGES),
+        max_abs_err_gates=worst, ids_and_ranks_exact=True, tol_gates=1e-6, edges=edges)
 
     if fam:
-        logits, k, tag = fam["logits"], fam["k"], fam["tag"]
+        cases = [(fam["tag"], fam["logits"], fam["k"])]
     else:
-        logits, k, tag = (randn(np.random.default_rng(40), FALLBACK_FAMILY["moe_logits"],
-                                torch.float32, device), 2, "fixed (phase families did not run)")
-    t, e = logits.shape
-    err = gating_check(logits, k, f"moe_gating {tag}")
-    bound, by = mg.bound_ms(t, e, k, logits.element_size())
-    rec = dict(shape=f"{tag}: T{t} E{e} k{k}", dtype=dtype_name(logits.dtype), max_abs_err=err,
-               ms=time_ms(lambda: mg.moe_gating(logits, k), flush),
-               plain_ms=time_ms(lambda: mg.moe_gating_plain(logits, k), flush),
-               bound_ms=bound, bound_by=by, library_ms=None)
-    say("kernels.full_width", kernel="moe_gating", **rec)
+        cases = [("fixed (phase families did not run)",
+                  randn(np.random.default_rng(40), FALLBACK_FAMILY["moe_logits"], torch.float32,
+                        device), 2)]
+    g = GATING_PREFILL
+    cases.append(("Mixtral router, prefill 16 x 2048 (seeded)",
+                  randn(np.random.default_rng(41), (g["t"], g["e"]), torch.float32, device),
+                  g["k"]))
+    shapes = []
+    for tag, logits, k in cases:
+        t, e = logits.shape
+        err = gating_check(logits, k, f"moe_gating {tag}")
+        bound, by = mg.bound_ms(t, e, k, logits.element_size())
+        rec = dict(shape=f"{tag}: T{t} E{e} k{k}", route=mg.gating_plan(t, e, k).route,
+                   dtype=dtype_name(logits.dtype), max_abs_err=err,
+                   ms=time_ms(lambda: mg.moe_gating(logits, k), flush),
+                   plain_ms=time_ms(lambda: mg.moe_gating_plain(logits, k), flush),
+                   bound_ms=bound, bound_by=by, library_ms=None)
+        say("kernels.full_width", kernel="moe_gating", **rec)
+        shapes.append(rec)
     return summary("moe_gating", "src/repro_torch/kernels/csrc/moe_gating.cu",
-                   "src/repro/kernels/moe_gating.py:65", "families", [rec])
+                   "src/repro/kernels/moe_gating.py:65", "families", shapes)
 
 
 def ssm_inputs(seed, b, s, d, n, dtype, device):
@@ -648,21 +697,45 @@ def ssm_inputs(seed, b, s, d, n, dtype, device):
     return x, dt, b_t, c_t, a
 
 
+def ssm_edge_inputs(seed, b, s, d, n, kind, dtype, device):
+    """ssm_inputs ("std"), then: dt + 1 and a - 100 ("flush": every
+    dt * a log2 e is under -126, so every decay flushes to 0; y stays under
+    about 100, where fp32 keeps 1e-4), a = 0, or x = 0 for the whole first
+    sequence."""
+    x, dt, b_t, c_t, a = ssm_inputs(seed, b, s, d, n, dtype, device)
+    if kind == "flush":
+        dt, a = dt + 1.0, a - 100.0
+        assert (dt[..., None] * (a * ss.LOG2E) < -126).all()
+    elif kind == "a_zero":
+        a = torch.zeros_like(a)
+    elif kind == "x_zero":
+        x[0] = 0
+    return x, dt, b_t, c_t, a
+
+
 def kernel_ssm(device, flush, fam) -> dict:
-    """ssm_scan against ssm_scan_plain on the card: the sweep, then Hymba's
+    """ssm_scan against ssm_scan_plain and ssm_scan_exp2_plain (the bf16
+    kernel's arithmetic) on the card: the sweep and the edges, then Hymba's
     layer-0 tensors from phase families with x in bf16 (as the model holds
     x_c) and in fp32."""
     tol = SCAN_TOL["ssm_scan"]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (b, s, d, n) in enumerate(SSM_SWEEP):
+    cases = ([(50 + i, *shape, "std") for i, shape in enumerate(SSM_SWEEP)]
+             + [(150 + i, *e) for i, e in enumerate(SSM_EDGES)])
+    for seed, b, s, d, n, kind in cases:
+        what = f"ssm_scan {(b, s, d, n, kind)}"
         for dtype in (torch.float32, torch.bfloat16):
-            args = ssm_inputs(50 + i, b, s, d, n, dtype, device)
+            args = ssm_edge_inputs(seed, b, s, d, n, kind, dtype, device)
             got = ss.ssm_scan(*args, block_d=d, chunk=s)
             torch.cuda.synchronize()
-            err = check_close(got, ss.ssm_scan_plain(*args), dtype,
-                              f"ssm_scan {(b, s, d, n)} {dtype}", tol)
+            err = check_close(got, ss.ssm_scan_plain(*args), dtype, f"{what} {dtype}", tol)
+            check_close(got, ss.ssm_scan_exp2_plain(*args), dtype, f"{what} {dtype} vs exp2",
+                        tol)
+            if kind == "x_zero":
+                assert not got[0].any(), f"{what} {dtype}: y of a sequence of x = 0 is not 0"
             worst[dtype] = max(worst[dtype], err)
-    say("kernels.sweep", kernel="ssm_scan", shapes=len(SSM_SWEEP),
+    say("kernels.sweep", kernel="ssm_scan", shapes=len(cases),
+        edges=[dict(zip(("b", "s", "d", "n", "inputs"), e)) for e in SSM_EDGES],
         max_abs_err_fp32=worst[torch.float32], max_abs_err_bf16=worst[torch.bfloat16],
         tol_fp32=tol[torch.float32], tol_bf16=tol[torch.bfloat16])
 
@@ -681,7 +754,7 @@ def kernel_ssm(device, flush, fam) -> dict:
         err = check_close(got, ss.ssm_scan_plain(*args), dtype, f"ssm_scan {tag} {dtype}", tol)
         bound, by = ss.bound_ms(b, s, d, n, args[0].element_size())
         rec = dict(shape=f"{tag}: B{b} S{s} D{d} N{n}", dtype=dtype_name(dtype),
-                   max_abs_err=err,
+                   max_abs_err=err, exp_floor_ms=ss.exp_floor_ms(b, s, d, n),
                    ms=time_ms(lambda: ss.ssm_scan(*args, block_d=d, chunk=s), flush),
                    plain_ms=time_ms(lambda: ss.ssm_scan_plain(*args), flush),
                    bound_ms=bound, bound_by=by, library_ms=None)
@@ -942,8 +1015,18 @@ def kernel_borda(device, flush, path) -> dict:
                    "src/repro/kernels/borda_count.py:49", "train.ops", shapes)
 
 
+def launch_floor(device, flush) -> None:
+    """The yardstick of the launch-bound rows: ``time_ms`` of an in-place add
+    on a one-element tensor, under the same flush."""
+    one = torch.zeros(1, device=device)
+    ms = time_ms(lambda: one.add_(1), flush)
+    say("kernels.full_width", kernel="launch_floor", shape="in-place add on one element",
+        dtype="float32", ms=ms, launch_floor_ms=ms, bound_ms=0.0, bound_by="bytes")
+
+
 def phase_kernels(device, cont_shapes, fam, train_path) -> list:
     flush = torch.ones(256 << 20, dtype=torch.uint8, device=device)  # read by time_ms
+    launch_floor(device, flush)
     return [kernel_paged(device, flush), kernel_flash(device, flush, cont_shapes),
             kernel_decode(device, flush), kernel_moe_gating(device, flush, fam.get("moe_gating")),
             kernel_ssm(device, flush, fam.get("ssm_scan")),
@@ -1838,10 +1921,11 @@ def traced(fn, card, tag, **extra) -> None:
 def phase_profile(device, card, seed) -> None:
     """Not part of the default run: trace flash attention and top-k at their
     large timed shapes, decode and paged attention at llama3-8b's timed
-    shapes, the bf16 mLSTM scan at xLSTM's width, Borda count at the
-    optimizer's ballots (4 of 8 over 8 items), one generate of the kernel
-    engine at stablelm-1.6b's full width, then one training step of the
-    whole minicpm-2b as phase train runs it."""
+    shapes, the bf16 mLSTM scan at xLSTM's width, the SSM scan at Hymba's
+    layer 0, MoE gating at Mixtral's 16 x 128 probe batch and 16 x 2048
+    prefill, Borda count at the optimizer's ballots (4 of 8 over 8 items),
+    one generate of the kernel engine at stablelm-1.6b's full width, then
+    one training step of the whole minicpm-2b as phase train runs it."""
     d = FULL["llama3-8b"]
     ctx = np.random.default_rng(7).integers(17, FULL_MAXB * FULL_BS + 1, size=FULL_ROWS)
     pargs = paged_case(11, FULL_ROWS, d["h"], d["kv"], d["hd"], FULL_BS, FULL_NB, FULL_MAXB,
@@ -1851,7 +1935,15 @@ def phase_profile(device, card, seed) -> None:
     margs = mlstm_inputs(69, *FALLBACK_FAMILY["mlstm"], torch.bfloat16, device)
     traced(lambda: ml.mlstm_scan(*margs), card, "profile.mlstm_scan", dtype="bfloat16",
            shape=list(FALLBACK_FAMILY["mlstm"]))
-    del pargs, margs
+    hb, hs, hd, hn = HYMBA_LAYER0
+    sargs = ssm_inputs(59, hb, hs, hd, hn, torch.bfloat16, device)
+    traced(lambda: ss.ssm_scan(*sargs, block_d=hd, chunk=hs), card, "profile.ssm_scan",
+           dtype="bfloat16", shape=list(HYMBA_LAYER0), plan=ss.ssm_plan(hd, hn)._asdict())
+    for t in (hb * hs, GATING_PREFILL["t"]):
+        lg = randn(np.random.default_rng(41), (t, 8), torch.float32, device)
+        traced(lambda: mg.moe_gating(lg, 2), card, "profile.moe_gating", tokens=t, experts=8,
+               k=2, plan=mg.gating_plan(t, 8, 2)._asdict())
+    del pargs, margs, sargs, lg
     f = DECODE_FULL
     dargs = decode_inputs(17, f["b"], d["h"], d["kv"], f["s"], d["hd"], f["fill"],
                           torch.bfloat16, device)

@@ -21,7 +21,8 @@
 // row-major (k, m) tile make the register A operand above of its transpose.
 //
 // Users: the bf16 paths of flash_attention.cu and mlstm_scan.cu (wgmma), and
-// the decode kernels' rings (decode_tile.cuh: cp.async).
+// the decode kernels' rings (decode_tile.cuh) and ssm_scan.cu's staging
+// (cp.async).
 #pragma once
 
 #include <cstdint>

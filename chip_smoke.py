@@ -3,6 +3,7 @@
     python3 chip_smoke.py                           # everything; what a checkout must pass
     python3 chip_smoke.py --phases order_by,kernels # the ORDER BY path and the kernels
     python3 chip_smoke.py --phases families,kernels # the MoE / Hymba / xLSTM families
+    python3 chip_smoke.py --phases archs            # phi4-mini, qwen2-vl, seamless-m4t
     python3 chip_smoke.py --phases train,kernels    # train minicpm-2b, resume, serve it
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
 
@@ -21,6 +22,14 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   produces on a probe batch through ``ops.moe_gating``, ``ops.ssm_scan`` and
   ``ops.mlstm_scan``, held against the plain versions and the model path's
   own results;
+- ``archs``: ``phi4-mini-3.8b``, ``qwen2-vl-7b`` (M-RoPE, embeddings as
+  input) and ``seamless-m4t-medium`` (encoder-decoder) at full width and
+  full depth, one after another, each serving a judged ORDER BY query and a
+  ``generate``: phi4-mini through the paged attention kernel at its group of
+  3 (a ``"check"`` engine first), then the same weights as
+  ``attn_impl="qchunk"`` against the einsum engine's logits; the other two
+  through monolithic prefill and the lockstep loop; each with the
+  reference's prefill-plus-decode against forward contract;
 - ``train``: ``minicpm-2b`` at full size (40 layers, 2.7 B parameters, bf16)
   trained a few steps through ``Trainer`` with the training example's
   settings (two microbatches, int8 error-feedback gradients, the WSD
@@ -159,6 +168,9 @@ DECODE_EDGES = [(1, 4, 1, 1024, 128, ("one", 777)),     # one valid slot in S 10
                 (2, 8, 2, 1024, 128, ("ring_infnan", 300, (100, 500)))]
 # full-width attention shapes: stablelm-1.6b (G 1) and llama3-8b (G 4)
 FULL = {"stablelm-1.6b": dict(h=32, kv=32, hd=64), "llama3-8b": dict(h=32, kv=8, hd=128)}
+# the paged kernel also at phi4-mini's group of 3 (phase archs decodes there):
+# blocks of GC 4 with one query head masked
+PAGED_FULL = dict(FULL, **{"phi4-mini-3.8b": dict(h=24, kv=8, hd=128)})
 FULL_ROWS, FULL_BS, FULL_NB, FULL_MAXB = 32, 16, 768, 23
 FEW_ROWS = 4  # a few judge rationales decoding together
 DECODE_FULL = dict(b=32, s=1024, fill=600)
@@ -420,7 +432,7 @@ def kernel_paged(device, flush) -> dict:
     ctx[0] = FULL_MAXB * FULL_BS
     shapes = []
     for rows in (FULL_ROWS, FEW_ROWS):
-        for arch, d in FULL.items():
+        for arch, d in PAGED_FULL.items():
             for dtype in (torch.bfloat16, torch.float32):
                 shapes.append(paged_full_width(arch, d, ctx[:rows], dtype, device, flush))
     return summary("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1249,15 +1261,27 @@ def record_prefills(lm, batches: list):
 
 @torch.inference_mode()
 def prefill_decode_rel_err(lm, seed) -> float:
-    """The reference's contract (tests/test_models_smoke.py): a 16-token
-    prefill plus one decode step against the 17-token forward's last logits,
-    relative to their scale.  Reported, not asserted, at full width."""
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, 256, (2, 17)).astype(np.int32)).to(lm.device)
-    x, _ = lm.forward({"tokens": toks}, mode="train")
+    """The reference's contract (tests/test_models_smoke.py): a 16-position
+    prefill plus one decode step against the 17-position forward's last
+    logits, relative to their scale, on the inputs that test makes: token
+    ids; normal embeddings for an ``embeds`` arch; 8 positions of normal
+    encoder input beside the tokens for an encoder-decoder.  Reported, not
+    asserted, at full width."""
+    cfg = lm.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 17)).astype(np.int32)).to(lm.device)
+    full = {"tokens": toks}
+    if cfg.input_mode == "embeds":
+        emb = randn(rng, (2, 17, cfg.d_model), torch.bfloat16, lm.device)
+        full, pre, step = {"embeds": emb}, {"embeds": emb[:, :16]}, emb[:, 16:]
+    else:
+        if cfg.input_mode == "encdec":
+            full["enc_embeds"] = randn(rng, (2, 8, cfg.d_model), torch.bfloat16, lm.device)
+        pre, step = dict(full, tokens=toks[:, :16]), toks[:, 16:]
+    x, _ = lm.forward(full, mode="train")
     ref = lm._head(x)[:, -1].float()
-    _, caches = lm.prefill({"tokens": toks[:, :16]}, reserve=4)
-    logits, _ = lm.decode_step(caches, toks[:, 16:], 16)
+    _, caches = lm.prefill(pre, reserve=4)
+    logits, _ = lm.decode_step(caches, step, 16)
     assert torch.isfinite(ref).all() and torch.isfinite(logits).all()
     return float((ref - logits.float()).abs().max()) / (float(ref.abs().max()) + 1e-6)
 
@@ -1438,6 +1462,127 @@ def phase_families(device, card, seed) -> tuple:
         del lm32
         torch.cuda.empty_cache()
     return dict(launches), fam
+
+
+# ------------------------------------------ the rest of the zoo (archs)
+# full width and full depth, seeded random bf16 weights, one after another
+ARCH_RUNS = ("phi4-mini-3.8b", "qwen2-vl-7b", "seamless-m4t-medium")
+JUDGE = QUERIES[0]                  # auto, judging its pilots with rationales
+
+
+def arch_query(eng, keys) -> dict:
+    """The judged ORDER BY query and a ``generate`` of GEN_PROMPTS on
+    ``eng`` (GEN_LIMITS capped at the engine's 16 new tokens): the order,
+    the ledger and the engine's deltas."""
+    res, rep, ledger, delta, wall = solo(eng, keys, JUDGE)
+    assert len(res.order) == 5 and len(set(res.uids())) == 5, res.uids()
+    before = eng.stats.decode_tokens
+    t0 = time.perf_counter()
+    outs = eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)
+    torch.cuda.synchronize()
+    assert len(outs) == len(GEN_PROMPTS) and all(isinstance(o, str) for o in outs)
+    return dict(chosen=rep.chosen.label if rep else None, n_calls=res.n_calls,
+                submissions=delta[0], probe_rows=delta[1], query_decode_tokens=delta[2],
+                query_wall_seconds=wall, order=res.uids(), ledger=ledger,
+                generate_prompts=len(GEN_PROMPTS),
+                generate_decode_tokens=eng.stats.decode_tokens - before,
+                generate_wall_seconds=time.perf_counter() - t0, outs=outs)
+
+
+def phi4_qchunk(lm, eng, card) -> None:
+    """The same weights as ``attn_impl="qchunk"``: the engine turns the
+    prefix cache and the paged pool off; one probe batch's last logits
+    against the einsum engine's; a ``generate`` through the lockstep loop."""
+    cfg = lm.cfg
+    probes = ["".join(eng.score_parts(p, QUERY)) for p in PASSAGES[:8]]
+    want = eng.submit_probes(probes)
+    lm.cfg = dataclasses.replace(cfg, attn_impl="qchunk")
+    try:
+        q = ServeEngine(lm, max_new_tokens=16)
+        assert not q.prefix_cache_enabled and not q.paged_enabled and q.pool is None
+        got = q.submit_probes(probes)
+        outs = q.generate(GEN_PROMPTS[:6], max_new_per=GEN_LIMITS[:6])    # lockstep
+        torch.cuda.synchronize()
+    finally:
+        lm.cfg = cfg
+    assert len(outs) == 6 and q.stats.decode_tokens > 0
+    assert np.isfinite(got).all() and got.shape == want.shape == (8, cfg.vocab_size)
+    err = float(np.abs(got - want).max())
+    within = bool(np.allclose(got, want, rtol=PAGED_KERNEL_RTOL, atol=PAGED_KERNEL_ATOL))
+    say("archs.qchunk", card=card, arch=cfg.name, attn_chunk=cfg.attn_chunk,
+        prefix_cache=False, paged_pool=False, probe_rows=len(probes),
+        last_logits_max_abs_err_vs_einsum=err, logits_scale=float(np.abs(want).max()),
+        bf16_tol=dict(rtol=PAGED_KERNEL_RTOL, atol=PAGED_KERNEL_ATOL), within_bf16_tol=within,
+        argmax_agreement=float((got.argmax(-1) == want.argmax(-1)).mean()),
+        decode_tokens=q.stats.decode_tokens)
+
+
+def phase_archs(device, card, seed) -> dict:
+    """phi4-mini (G 3, hd 128) through the paged kernel, checked against the
+    dense step, then as ``qchunk``; qwen2-vl (M-RoPE, embeds input) and
+    seamless (encoder-decoder) through monolithic prefill and the lockstep
+    loop.  Each ORDER BY query and ``generate`` runs with the counts set to 0
+    just before and read just after; the check engine, which launches the
+    kernel to compare it, is not counted.  Returns the launches."""
+    keys = as_keys(PASSAGES)
+    launches = collections.Counter()
+    for arch in ARCH_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm = seeded_lm(get_config(arch), device, seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        extra = {}
+        if arch == "phi4-mini-3.8b":
+            check = ServeEngine(lm, paged_kernel="check", max_new_tokens=16)
+            steps = count_steps(check)
+            crun = arch_query(check, keys)
+            assert steps["kernel"] == steps["dense"] > 0, steps
+            assert_no_leak(check)
+            del check
+            eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=16)
+            assert eng.prefix_cache_enabled and eng.paged_enabled
+        else:
+            eng = ServeEngine(lm, max_new_tokens=16)
+            # embeds / encoder input: no prefix KV and no paged pool, as the
+            # reference's engine decides; decode is the lockstep loop
+            assert not eng.prefix_cache_enabled and not eng.paged_enabled and eng.pool is None
+        reset_launches()                       # ---- the path starts here
+        run = arch_query(eng, keys)
+        torch.cuda.synchronize()
+        mine = read_launches()                 # ---- and ends here
+        launches.update(mine)
+        if arch == "phi4-mini-3.8b":
+            assert mine["paged_attention"] > 0, mine
+            assert_no_leak(eng)
+            extra = dict(check_engine=dict(steps=steps["kernel"], passed=True,
+                                           rtol=PAGED_KERNEL_RTOL, atol=PAGED_KERNEL_ATOL,
+                                           order_equals=crun["order"] == run["order"],
+                                           outs_agreement=agreement(run["outs"], crun["outs"])),
+                         paged_group=lm.cfg.n_heads // lm.cfg.n_kv_heads, hd=lm.cfg.hd)
+        else:
+            assert not any(mine.values()), mine
+        if lm.cfg.input_mode == "encdec":
+            toks = eng._pad_ids([eng.tok.encode(p) for p in PASSAGES[:4]])
+            with torch.inference_mode():
+                _, caches = eng._prefill(eng._make_batch(toks))
+            kvc, xk, xv = caches[0]
+            extra = dict(ring_cache_shape=list(kvc.k.shape), cross_k_shape=list(xk.shape),
+                         cross_v_shape=list(xv.shape), enc_len=toks.shape[1])
+            del caches
+        cfg = lm.cfg
+        say("archs.model", card=card, arch=cfg.name, dtype=cfg.dtype, input_mode=cfg.input_mode,
+            layers=cfg.decoder_layers(), encoder_layers=cfg.encoder_layers(),
+            params=sum(p.numel() for p in lm.parameters()), init_seconds=init_s,
+            **{k: v for k, v in run.items() if k not in ("ledger", "outs")}, launches=mine,
+            prefill_decode_vs_forward_rel_err=prefill_decode_rel_err(lm, seed), **extra,
+            wall_seconds=time.perf_counter() - t0,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if arch == "phi4-mini-3.8b":
+            phi4_qchunk(lm, eng, card)
+        del eng, lm
+        release()
+    return dict(launches)
 
 
 # --------------------------------------------------------- training (train)
@@ -1982,15 +2127,15 @@ def phase_profile(device, card, seed) -> None:
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,families,train,kernels,ops,main,llama"
+DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
-                    help="comma-separated subset of order_by,families,train,kernels,ops,"
-                         "main,llama,profile")
+                    help="comma-separated subset of order_by,families,archs,train,kernels,"
+                         "ops,main,llama,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2014,6 +2159,8 @@ def main(argv=None) -> int:
         launches_by_path["order_by"], cont_shapes = phase_order_by(device, card, args.seed)
     if "families" in phases:
         launches_by_path["families"], fam = phase_families(device, card, args.seed)
+    if "archs" in phases:
+        launches_by_path["archs"] = phase_archs(device, card, args.seed)
     if "train" in phases:
         launches_by_path["train.ops"], train_path = phase_train(device, card, args.seed)
     kernels = (phase_kernels(device, cont_shapes, fam, train_path) if "kernels" in phases

@@ -2,7 +2,7 @@
 
 Counterpart of ``src/repro/configs/``.  Each module exposes ``full()`` (the
 published hyper-parameters) and ``reduced()`` (same family, small dims, for
-the CPU tests).  Only architectures whose block kinds are ported are listed.
+the CPU tests).  Every id of the reference is listed.
 """
 from .registry import ARCH_IDS, get_config, get_reduced, list_archs
 

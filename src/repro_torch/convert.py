@@ -29,7 +29,7 @@ def to_tensor(arr, device=None, dtype=None) -> torch.Tensor:
 
 # parameters the reference keeps in fp32 whatever the model's dtype
 FP32_PARAMS = frozenset({
-    "norm1", "norm2", "fuse_a", "fuse_s",               # norm scales
+    "norm1", "norm2", "norm_x", "fuse_a", "fuse_s",     # norm scales
     "ssm_dt_bias", "ssm_A_log", "ssm_D_skip",           # SSM coefficients
     "gn_scale", "b_z", "b_i", "b_f", "b_o"})            # xLSTM norms, biases
 
@@ -38,12 +38,10 @@ def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
     """Build an ``LM`` for ``cfg`` holding ``params``: the reference's pytree
     as numpy arrays (``embed``, ``final_norm``, ``stacks[i]`` dicts with a
     leading layer dim, nested ``ffn`` / ``moe`` / ``ssm`` dicts and the flat
-    mLSTM / sLSTM keys, optional ``lm_head``).  ``dtype`` overrides the
-    weights' dtype; the names in :data:`FP32_PARAMS` stay fp32."""
-    if "enc_stacks" in params:
-        raise NotImplementedError(
-            "encoder stacks are not ported yet: they come with the "
-            "encoder-decoder slice")
+    mLSTM / sLSTM / ``xdec`` keys, optional ``lm_head``, and with an encoder
+    ``enc_stacks`` and ``enc_norm``).  ``dtype`` overrides the weights'
+    dtype; the names in :data:`FP32_PARAMS` and the final and encoder norms
+    stay fp32."""
     lm = LM(cfg, device=device)
 
     def load(dst: torch.nn.Parameter, src, keep_dtype=False):
@@ -59,14 +57,21 @@ def from_jax_params(params, cfg: ModelConfig, device=None, dtype=None) -> LM:
         raise ValueError("lm_head does not match cfg.tie_embeddings")
     if not cfg.tie_embeddings:
         load(lm.lm_head, params["lm_head"])
-    if len(params["stacks"]) != len(lm.stacks):
-        raise ValueError("number of stacks does not match cfg.pattern")
-    for dst, src in zip(lm.stacks, params["stacks"]):
-        flat = _flatten(src)
-        if set(flat) != set(dst.keys()):
-            raise ValueError(f"stack keys {sorted(flat)} != {sorted(dst.keys())}")
-        for name, arr in flat.items():
-            load(dst[name], arr, keep_dtype=name in FP32_PARAMS)
+    if ("enc_stacks" in params) != (lm.enc_stacks is not None):
+        raise ValueError("enc_stacks does not match cfg.enc_pattern")
+    pairs = [(lm.stacks, params["stacks"], "pattern")]
+    if lm.enc_stacks is not None:
+        load(lm.enc_norm, params["enc_norm"], keep_dtype=True)
+        pairs.append((lm.enc_stacks, params["enc_stacks"], "enc_pattern"))
+    for stacks, srcs, field in pairs:
+        if len(srcs) != len(stacks):
+            raise ValueError(f"number of stacks does not match cfg.{field}")
+        for dst, src in zip(stacks, srcs):
+            flat = _flatten(src)
+            if set(flat) != set(dst.keys()):
+                raise ValueError(f"stack keys {sorted(flat)} != {sorted(dst.keys())}")
+            for name, arr in flat.items():
+                load(dst[name], arr, keep_dtype=name in FP32_PARAMS)
     return lm
 
 

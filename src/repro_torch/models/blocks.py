@@ -1,15 +1,18 @@
 """Block kinds and layer stacks.
 
-Counterpart of ``src/repro/models/blocks.py``.  Ported: kinds ``attn``
-(full causal attention + SwiGLU FFN), ``swa`` (sliding-window attention +
-FFN), ``moe`` / ``moe_swa`` (full / sliding-window attention + top-k MoE
-FFN), ``hymba_g`` / ``hymba_l`` (full / sliding-window attention in
-parallel with Mamba SSM heads, + FFN), ``mlstm`` and ``slstm`` (xLSTM), in
-modes ``train``, ``prefill`` and ``decode``; ``prefill_cont`` and
-``decode_paged`` for ``attn`` only, as in the reference.  Kinds ``enc`` and
-``xdec`` and ``attn_impl="qchunk"`` raise ``NotImplementedError`` naming the
-slice that brings them.  In mode ``train`` with gradients on, each layer
-is rematerialised as ``cfg.remat`` says (:func:`apply_stack`).
+Counterpart of ``src/repro/models/blocks.py``: kinds ``attn`` (full causal
+attention + SwiGLU FFN), ``swa`` (sliding-window attention + FFN), ``moe`` /
+``moe_swa`` (full / sliding-window attention + top-k MoE FFN), ``hymba_g`` /
+``hymba_l`` (full / sliding-window attention in parallel with Mamba SSM
+heads, + FFN), ``mlstm`` and ``slstm`` (xLSTM), ``enc`` (bidirectional
+encoder attention + FFN, no cache) and ``xdec`` (decoder self-attention,
+cross-attention over the encoder's output, + FFN), in modes ``train``,
+``prefill`` and ``decode``; ``prefill_cont`` and ``decode_paged`` for
+``attn`` only, as in the reference.  ``attn_impl`` picks the sequence
+attention: ``einsum``, ``bf16`` or ``qchunk`` (query-blocked).  In mode
+``train`` with gradients on, each layer is rematerialised as ``cfg.remat``
+says (:func:`apply_stack`).  Left for the distributed slice: the sharded MoE
+dispatch (``moe_impl="sharded"``), which needs a mesh.
 
 A stack of ``n`` layers keeps its parameters stacked with a leading layer dim,
 as the reference does; where the reference scans over that dim, the port runs
@@ -18,11 +21,13 @@ a Python loop.  All kinds share one signature::
     apply_block(kind, cfg, p, x, ctx, cache, mode) -> (x', cache')
 
 ``ctx`` carries the rope angles (None for a purely recurrent model), the
+encoder's output ``enc_out`` (encoder-decoder, every mode but decode), the
 scalar decode position (a Python int) and, for paged decode, the block tables
 and per-row positions.  A layer's cache is a ``KVCache``, an SSM / mLSTM /
-sLSTM state, or a tuple of those (Hymba); a stack's cache has the same
-structure with a leading layer dim on every leaf.  :func:`apply_stack`
-leaves decode-mode caches updated in place.
+sLSTM state, a tuple of those (Hymba), ``(KVCache, cross K, cross V)``
+(``xdec``) or ``()`` (``enc``); a stack's cache has the same structure with
+a leading layer dim on every leaf.  :func:`apply_stack` leaves decode-mode
+caches updated in place.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (KVCache, PagedKV, apply_rope, causal_mask, dtype_of,
-                     gqa_attention, gqa_attention_bf16, gqa_attention_qchunk,
+                     full_mask, gqa_attention, gqa_attention_bf16,
+                     gqa_attention_qchunk,
                      paged_decode_attention_dense, paged_write,
                      paged_write_index, rms_norm, stacked_dense_init, swiglu)
 from .moe import init_moe_params, moe_ffn
@@ -45,20 +51,14 @@ from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
                     slstm_sequence, slstm_step)
 
 KINDS = ("attn", "swa", "moe", "moe_swa", "hymba_g", "hymba_l", "mlstm",
-         "slstm")
+         "slstm", "enc", "xdec")
 WINDOWED = {"swa", "moe_swa", "hymba_l"}
 MODES = ("train", "prefill", "decode", "prefill_cont", "decode_paged")
-_LATER = {"enc": "the encoder-decoder slice", "xdec": "the encoder-decoder slice"}
 
 
 def _check_kind(kind: str) -> None:
-    if kind in KINDS:
-        return
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet: it comes "
-            f"with {_LATER[kind]}")
-    raise ValueError(f"unknown block kind {kind}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind}")
 
 
 # --------------------------------------------------------------------- init
@@ -85,8 +85,15 @@ def init_stack(gen: torch.Generator, kind: str, n: int, cfg: ModelConfig,
     if kind == "slstm":
         p.update(init_slstm_params(gen, n, d, h, hd, dtype, device))
         return p
-    p.update({"wq": dense(d, h * hd), "wk": dense(d, kv * hd),
-              "wv": dense(d, kv * hd), "wo": dense(h * hd, d, depth_scale)})
+    def attn(prefix=""):
+        p.update({f"{prefix}wq": dense(d, h * hd), f"{prefix}wk": dense(d, kv * hd),
+                  f"{prefix}wv": dense(d, kv * hd),
+                  f"{prefix}wo": dense(h * hd, d, depth_scale)})
+
+    attn()
+    if kind == "xdec":
+        p["norm_x"] = zeros()
+        attn("x_")
     if kind in ("hymba_g", "hymba_l"):
         p["ssm"] = init_ssm_params(gen, n, d, cfg.d_inner, cfg.ssm_state,
                                    cfg.ssm_conv_width, dtype, device)
@@ -156,7 +163,9 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      enc_len: int = 0, device=None):
     """Cache for ONE layer of ``kind``: a ring KVCache (of length
     ``min(sliding_window, cache_len)`` for windowed kinds), with the SSM
-    state beside it for Hymba, or the mLSTM / sLSTM state."""
+    state beside it for Hymba, or with the cross K and V over ``enc_len``
+    encoder positions for ``xdec``; the mLSTM / sLSTM state; ``()`` for
+    ``enc``."""
     _check_kind(kind)
     dtype = dtype_of(cfg.dtype)
 
@@ -172,9 +181,16 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
         return (kvc(cache_len if kind == "hymba_g" else win),
                 init_ssm_state(batch, cfg.d_inner, cfg.ssm_state,
                                cfg.ssm_conv_width, dtype, device))
+    if kind == "xdec":
+        def cross():
+            return torch.zeros((batch, enc_len, cfg.n_kv_heads, cfg.hd),
+                               dtype=dtype, device=device)
+        return kvc(cache_len), cross(), cross()
     if kind == "mlstm":
         return init_mlstm_state(batch, cfg.n_heads, cfg.qk, cfg.hd, device)
-    return init_slstm_state(batch, cfg.n_heads, cfg.hd, device)
+    if kind == "slstm":
+        return init_slstm_state(batch, cfg.n_heads, cfg.hd, device)
+    return ()                               # enc
 
 
 # ---------------------------------------------------------------- attention
@@ -190,16 +206,18 @@ def _qkv(p, x, cfg: ModelConfig, angles):
     return q, k, v
 
 
-def _attn_fn(cfg: ModelConfig):
-    if cfg.attn_impl == "qchunk":
-        gqa_attention_qchunk()              # raises: not ported yet
-    return gqa_attention_bf16 if cfg.attn_impl == "bf16" else gqa_attention
-
-
-def _attn_seq(p, x, cfg, angles, window: int):
+def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False):
     q, k, v = _qkv(p, x, cfg, angles)
     s = x.shape[1]
-    out = _attn_fn(cfg)(q, k, v, causal_mask(s, s, window, device=x.device))
+    if cfg.attn_impl == "qchunk" and not bidir:
+        out = gqa_attention_qchunk(q, k, v, causal=True, window=window,
+                                   chunk=cfg.attn_chunk)
+    else:
+        mask = (full_mask(s, s, device=x.device) if bidir
+                else causal_mask(s, s, window, device=x.device))
+        fn = (gqa_attention_bf16 if cfg.attn_impl in ("bf16", "qchunk")
+              else gqa_attention)
+        out = fn(q, k, v, mask)
     return out.reshape(*x.shape[:2], -1) @ p["wo"], (k, v)
 
 
@@ -251,8 +269,14 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
     reuse path: the new tokens' queries attend causally over
     ``[cached KV; own KV]`` with absolute query offset = cached length.
     Cached KV may be batch-1 (a shared prefix broadcast over the batch).
-    Full attention, einsum/bf16 impls only."""
-    fn = _attn_fn(cfg)
+    Full attention, einsum/bf16 impls only: qchunk's blocked softmax sums in
+    another order, so substituting bf16 would break the
+    chunked-prefill-equals-monolithic contract."""
+    if cfg.attn_impl not in ("einsum", "bf16"):
+        raise NotImplementedError(
+            f"prefill_cont requires attn_impl 'einsum' or 'bf16', got "
+            f"{cfg.attn_impl!r}")
+    fn = gqa_attention_bf16 if cfg.attn_impl == "bf16" else gqa_attention
     q, k, v = _qkv(p, x, cfg, angles)
     b, s = x.shape[:2]
     start = cache.k.shape[1]
@@ -266,6 +290,22 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
     out = fn(q, k_all, v_all, mask)
     return (out.reshape(b, s, -1) @ p["wo"],
             KVCache.from_prefill(k_all, v_all, 0, reserve))
+
+
+def _cross_attn(p, x, cfg, enc_kv=None, enc_out=None):
+    """Cross-attention: q from x (no rope), k / v from the encoder's output,
+    or the pair cached after prefill; fp32 attention under a full mask."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["x_wq"]).reshape(b, s, h, hd)
+    if enc_kv is None:
+        se = enc_out.shape[1]
+        k = (enc_out @ p["x_wk"]).reshape(b, se, kv, hd)
+        v = (enc_out @ p["x_wv"]).reshape(b, se, kv, hd)
+    else:
+        k, v = enc_kv
+    out = gqa_attention(q, k, v, full_mask(s, k.shape[1], device=x.device))
+    return out.reshape(b, s, -1) @ p["x_wo"], (k, v)
 
 
 # ------------------------------------------------------------------- apply
@@ -288,7 +328,7 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
     reserve = ctx.get("reserve", 0)
     new_cache = cache
 
-    if kind in ("attn", "swa", "moe", "moe_swa"):
+    if kind in ("attn", "swa", "moe", "moe_swa", "enc"):
         h = rms_norm(x, p["norm1"], eps)
         if mode == "decode":
             a, new_cache = _attn_decode(p, h, cfg, angles, cache, ctx["position"])
@@ -297,7 +337,7 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
         elif mode == "prefill_cont":
             a, new_cache = _attn_cont(p, h, cfg, angles, cache, reserve)
         else:
-            a, (k, v) = _attn_seq(p, h, cfg, angles, window)
+            a, (k, v) = _attn_seq(p, h, cfg, angles, window, bidir=kind == "enc")
             if mode == "prefill":
                 new_cache = KVCache.from_prefill(k, v, window, reserve)
         x = x + rs * a
@@ -323,6 +363,26 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
                 s_out, _ = ssm_sequence(p["ssm"], h, chunk=cfg.scan_chunk)
         fused = 0.5 * (rms_norm(a, p["fuse_a"], eps) + rms_norm(s_out, p["fuse_s"], eps))
         x = x + rs * fused
+        h = rms_norm(x, p["norm2"], eps)
+        return x + rs * swiglu(h, **p["ffn"]), new_cache
+
+    if kind == "xdec":
+        h = rms_norm(x, p["norm1"], eps)
+        if mode == "decode":
+            kvc, xk, xv = cache
+            a, kvc = _attn_decode(p, h, cfg, angles, kvc, ctx["position"])
+            x = x + rs * a
+            h = rms_norm(x, p["norm_x"], eps)
+            a, _ = _cross_attn(p, h, cfg, enc_kv=(xk, xv))
+            new_cache = (kvc, xk, xv)
+        else:
+            a, (k, v) = _attn_seq(p, h, cfg, angles, 0)
+            x = x + rs * a
+            h = rms_norm(x, p["norm_x"], eps)
+            a, (xk, xv) = _cross_attn(p, h, cfg, enc_out=ctx["enc_out"])
+            if mode == "prefill":
+                new_cache = (KVCache.from_prefill(k, v, 0, reserve), xk, xv)
+        x = x + rs * a
         h = rms_norm(x, p["norm2"], eps)
         return x + rs * swiglu(h, **p["ffn"]), new_cache
 

@@ -5,8 +5,7 @@ config of one package equals the other's field by field).  A model is a
 *pattern* of homogeneous block stacks; a stack's parameters carry a leading
 layer dim and the port runs the stack as a Python loop over it.
 
-Block kinds (only ``attn`` is ported so far; ``models/blocks.py`` raises
-``NotImplementedError`` for the others):
+Block kinds (all ported, ``models/blocks.py``):
   attn       full causal attention + SwiGLU FFN
   swa        sliding-window attention + SwiGLU FFN
   moe        full attention + top-k MoE FFN

@@ -1,10 +1,7 @@
-"""Shared layers: RMSNorm, RoPE, GQA attention (full / decode-with-cache /
-paged decode), SwiGLU.
+"""Shared layers: RMSNorm, RoPE / M-RoPE, GQA attention (full / query-blocked
+/ cross / decode-with-cache / paged decode), SwiGLU.
 
 Counterpart of ``src/repro/models/layers.py``; plain functions on tensors.
-Left for later slices, each raising ``NotImplementedError`` where a caller
-could reach it: M-RoPE (3-D positions) in :func:`rope_angles` and
-``gqa_attention_qchunk``.
 
 Conventions (as in the reference): activations in the config's dtype, softmax
 and norms in fp32; caches are rings with ``slot = position % cache_len`` and an
@@ -52,16 +49,23 @@ def rms_norm(x, scale, eps: float = 1e-5):
 
 # ---------------------------------------------------------------------- RoPE
 def rope_angles(positions, rot_dim: int, theta: float, sections=()):
-    """positions: (B, S) integer.  Returns (B, S, rot_dim // 2) fp32 angles."""
-    if positions.dim() != 2 or sections:
-        raise NotImplementedError(
-            "M-RoPE ((3, B, S) positions with sections) is not ported yet: it "
-            "comes with the M-RoPE / embeds-input slice")
+    """positions: (B, S) integer, or (3, B, S) for M-RoPE with ``sections``
+    (t, h, w) frequency-group sizes summing to rot_dim // 2: frequency ``j``
+    of group ``i`` turns with position row ``i``.  Returns (B, S,
+    rot_dim // 2) fp32 angles."""
     half = rot_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32,
                             device=positions.device) / half
     inv_freq = 1.0 / (theta ** exponent)
-    return positions.float()[..., None] * inv_freq
+    if positions.dim() == 2:
+        return positions.float()[..., None] * inv_freq
+    if positions.dim() != 3 or not sections:
+        raise ValueError("M-RoPE needs (3, B, S) positions and sections, got "
+                         f"positions {tuple(positions.shape)}, sections {sections!r}")
+    sec_ids = torch.cat([torch.full((n,), i, dtype=torch.long, device=positions.device)
+                         for i, n in enumerate(sections)])          # (half,)
+    pos = positions.index_select(0, sec_ids)                        # (half, B, S)
+    return pos.movedim(0, -1).float() * inv_freq
 
 
 def apply_rope(x, angles):
@@ -105,10 +109,39 @@ def gqa_attention_bf16(q, k, v, mask):
     return out.reshape(b, sq, h, hd)
 
 
-def gqa_attention_qchunk(*args, **kwargs):
-    raise NotImplementedError(
-        "attn_impl='qchunk' is not ported yet: it comes with the slice of "
-        "the remaining pure-attn configs (no config uses it)")
+def gqa_attention_qchunk(q, k, v, *, causal: bool, window: int,
+                         chunk: int = 512):
+    """Query blocking in plain PyTorch, the reference's XLA scan as a loop:
+    the score transient is (c, Sk), not (Sq, Sk), with ``c`` the largest
+    divisor of Sq that is at most ``chunk``.  q is pre-scaled by
+    1/sqrt(hd); scores and softmax stay in the working dtype.  With a window
+    each block attends only its live KV range of ``window + c`` columns.
+    Self-attention only (Sq == Sk)."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    c = min(chunk, sq)
+    while sq % c:
+        c -= 1
+    qg = (q / math.sqrt(hd)).reshape(b, sq, kv, g, hd)
+    wlen = min(sq, window + c) if window else sq
+    fill = -3e38 if q.dtype == torch.bfloat16 else NEG_INF
+    rows_base = torch.arange(c, device=q.device)
+    outs = []
+    for qi in range(sq // c):
+        rows = qi * c + rows_base                         # absolute q rows
+        start = min(max(qi * c + c - wlen, 0), sq - wlen)
+        ks, vs = k[:, start:start + wlen], v[:, start:start + wlen]
+        cols = start + torch.arange(wlen, device=q.device)  # absolute kv cols
+        m = torch.ones((c, wlen), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= cols[None, :] <= rows[:, None]
+        if window:
+            m &= cols[None, :] > rows[:, None] - window
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, qi * c:(qi + 1) * c], ks)
+        w = torch.softmax(scores.masked_fill(~m, fill), dim=-1)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", w, vs))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, hd)
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,

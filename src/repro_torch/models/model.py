@@ -12,17 +12,19 @@ leading layer dim of each stack, so loading converted weights is a copy
 
 Ported: ``forward``, ``loss``, ``init_caches``, ``prefill``,
 ``prefill_cont``, ``decode_step``, ``decode_step_paged`` (``impl="dense" |
-"kernel"``) and ``score_hidden`` for token-input decoder-only stacks of every
-block kind but ``enc`` / ``xdec`` (the grouped patterns of Hymba and xLSTM
-included; ``prefill_cont`` and ``decode_step_paged`` for pure ``attn``
-stacks, as in the reference).  :meth:`LM.param_tree` gives the parameters
-in the reference's nested pytree, which the trainer and checkpoints walk.
-Left for later slices, each raising ``NotImplementedError``: the encoder
-(``enc_pattern``, encoder-decoder slice), ``embeds`` batches and M-RoPE.
+"kernel"``) and ``score_hidden`` for every pattern of the reference: the
+grouped patterns of Hymba and xLSTM, an encoder (``enc_pattern``, run before
+the decoder in every mode but decode), ``embeds`` input and M-RoPE
+(``prefill_cont`` and ``decode_step_paged`` for token-input pure ``attn``
+stacks, as in the reference).  :meth:`LM.param_tree` gives the parameters in
+the reference's nested pytree, which the trainer and checkpoints walk.
 
-Batch dict keys: ``tokens`` (B, S) integer ids; ``positions`` (B, S) optional,
-default arange.  The decode position of :meth:`decode_step` is a Python int.
-Decode steps update the caches they are given in place.
+Batch dict keys: ``tokens`` (B, S) integer ids; ``embeds`` (B, S, D)
+precomputed frontend embeddings, used instead of tokens; ``enc_embeds``
+(B, S_enc, D) the encoder's input (encoder-decoder); ``positions`` (B, S),
+or (3, B, S) for M-RoPE, optional, default arange.  The decode position of
+:meth:`decode_step` is a Python int.  Decode steps update the caches they
+are given in place.
 """
 from __future__ import annotations
 
@@ -69,11 +71,6 @@ class LM(nn.Module):
         ``device``; default: a new one seeded with 0).  ``device=None`` means
         CUDA and raises without it."""
         super().__init__()
-        if cfg.enc_pattern or cfg.input_mode != "tokens" or cfg.mrope_sections:
-            raise NotImplementedError(
-                "repro_torch.LM runs token-input decoder-only stacks so far; "
-                "encoders come with the encoder-decoder slice, embeds input "
-                "and M-RoPE with the M-RoPE / embeds-input slice")
         self.cfg = cfg
         dev = resolve_device(device)
         if generator is None:
@@ -95,6 +92,13 @@ class LM(nn.Module):
             self.lm_head = normal(cfg.d_model, cfg.vocab_size)
         else:
             self.lm_head = None
+        self.enc_stacks = self.enc_norm = None
+        if cfg.enc_pattern:
+            self.enc_stacks = nn.ModuleList(
+                nn.ParameterDict(_flatten(init_stack(generator, kind, n, cfg, dev)))
+                for kind, n in cfg.enc_pattern)
+            self.enc_norm = nn.Parameter(
+                torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev))
 
     @property
     def device(self) -> torch.device:
@@ -106,31 +110,49 @@ class LM(nn.Module):
 
     def param_tree(self) -> dict:
         """Every parameter (the live tensors) in the reference's pytree:
-        ``embed``, ``final_norm``, ``stacks`` (a list of nested dicts) and,
-        untied, ``lm_head``."""
+        ``embed``, ``final_norm``, ``stacks`` (a list of nested dicts),
+        untied ``lm_head`` and, with an encoder, ``enc_stacks`` and
+        ``enc_norm``."""
         tree = {"embed": self.embed, "final_norm": self.final_norm,
                 "stacks": [self.stack_params(i) for i in range(len(self.stacks))]}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
+        if self.enc_stacks is not None:
+            tree["enc_stacks"] = [_nest(st) for st in self.enc_stacks]
+            tree["enc_norm"] = self.enc_norm
         return tree
 
     # ------------------------------------------------------------- embedding
     def _embed_in(self, batch) -> torch.Tensor:
         if batch.get("embeds") is not None:
-            raise NotImplementedError(
-                "embeds input is not ported yet: it comes with the M-RoPE / "
-                "embeds-input slice")
+            return batch["embeds"].to(dtype_of(self.cfg.dtype))
         return self.embed[batch["tokens"].long()] * self.cfg.embed_scale
 
     def _angles(self, positions, seq: int, batch_dim: int):
         cfg = self.cfg
-        if all(kind in ("mlstm", "slstm") for kind, _ in cfg.pattern):
+        if all(kind in ("mlstm", "slstm")
+               for kind, _ in tuple(cfg.pattern) + tuple(cfg.enc_pattern)):
             return None                     # purely recurrent: no RoPE
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
                                      device=self.device).expand(batch_dim, seq)
+            if cfg.mrope_sections:
+                positions = positions.expand(3, batch_dim, seq)
         return rope_angles(positions, cfg.hd, cfg.rope_theta,
                            cfg.mrope_sections)
+
+    def _encode(self, batch, ctx_base) -> Optional[torch.Tensor]:
+        """The encoder over ``batch["enc_embeds"]``, in mode ``train`` under
+        its own angles, then ``enc_norm``; None without an encoder."""
+        cfg = self.cfg
+        if not cfg.enc_pattern:
+            return None
+        xe = batch["enc_embeds"].to(dtype_of(cfg.dtype))
+        be, se, _ = xe.shape
+        enc_ctx = dict(ctx_base, angles=self._angles(None, se, be))
+        for st, (kind, _n) in zip(self.enc_stacks, cfg.enc_pattern):
+            xe, _ = apply_stack(kind, cfg, _nest(st), xe, enc_ctx, None, "train")
+        return rms_norm(xe, self.enc_norm, cfg.norm_eps)
 
     def _head(self, x) -> torch.Tensor:
         cfg = self.cfg
@@ -149,6 +171,8 @@ class LM(nn.Module):
         if mode == "decode":
             pos_arr = torch.full((b, 1), int(position), dtype=torch.int32,
                                  device=x.device)
+            if cfg.mrope_sections:
+                pos_arr = pos_arr.expand(3, b, 1)
             ctx["angles"] = self._angles(pos_arr, 1, b)
             ctx["position"] = int(position)
         elif mode == "prefill_cont":
@@ -162,6 +186,8 @@ class LM(nn.Module):
             ctx["angles"] = self._angles(pos, s, b)
         else:
             ctx["angles"] = self._angles(batch.get("positions"), s, b)
+        if mode != "decode" and cfg.enc_pattern:
+            ctx["enc_out"] = self._encode(batch, ctx)
 
         new_caches = []
         for i, (kind, _n) in enumerate(cfg.pattern):
@@ -171,7 +197,8 @@ class LM(nn.Module):
         return x, (new_caches if mode != "train" else None)
 
     def loss(self, batch):
-        """Next-token cross entropy over ``batch["tokens"]`` (B, S), as the
+        """Next-token cross entropy over ``batch["tokens"]`` (B, S) (the
+        decoder's tokens of an encoder-decoder), as the
         reference computes it: the hidden states of positions [0, S-1)
         against the tokens of [1, S), in chunks of ``LOSS_CHUNK`` positions
         and a remainder chunk, fp32 logits through the (tied) head times
@@ -232,10 +259,11 @@ class LM(nn.Module):
                                  reserve=reserve)
         return self._head(x[:, -1:, :])[:, 0], caches
 
-    def decode_step(self, caches, tokens, position: int):
-        """One token: ids (B, 1).  Returns (logits (B, V), caches); the
-        caches are updated in place."""
-        x, caches = self.forward({"tokens": tokens}, mode="decode",
+    def decode_step(self, caches, token_or_embed, position: int):
+        """One token: ids (B, 1) or embeds (B, 1, D).  Returns (logits
+        (B, V), caches); the caches are updated in place."""
+        key = "embeds" if token_or_embed.is_floating_point() else "tokens"
+        x, caches = self.forward({key: token_or_embed}, mode="decode",
                                  caches=caches, position=position)
         return self._head(x)[:, 0], caches
 
@@ -254,6 +282,9 @@ class LM(nn.Module):
         cache holding the same tokens; ``impl="kernel"`` runs the paged
         attention kernel (kernels/paged_attention.py), allclose to it."""
         cfg = self.cfg
+        if cfg.input_mode != "tokens" or cfg.mrope_sections:
+            raise ValueError("paged decode supports token-input, non-M-RoPE "
+                             "archs only")
         if impl not in ("dense", "kernel"):
             raise ValueError(f"impl must be 'dense' or 'kernel', got {impl!r}")
         x = self.embed[tokens.long()] * cfg.embed_scale

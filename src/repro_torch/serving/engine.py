@@ -12,7 +12,11 @@ compiled programs, and the arena is updated in place where the reference
 donates it through a jitted step.  Left for the distributed slice: the
 ``mesh=`` / ``plan=`` / ``dp_probe_slices=`` arguments (passing a mesh raises
 ``NotImplementedError``), ``_put_rows`` and the ``dp_*`` counters.  Archs
-whose input is not plain tokens cannot be built by the port's ``LM`` at all.
+whose input is not plain tokens get their batches as the reference's stub
+frontends make them: ``embeds`` archs the prompt bytes through the text
+embedding table, encoder-decoder archs that as the encoder's input beside the
+tokens.  They, MoE, windowed and recurrent stacks and ``attn_impl="qchunk"``
+take monolithic prefill and the lockstep decode loop.
 
 Prompts are byte-tokenized and left-padded.  Submission shapes are bucketed
 to powers of two: the model has no PAD attention mask, so a row's padded
@@ -302,7 +306,14 @@ class ServeEngine:
         return torch.from_numpy(arr).to(self.device)
 
     def _make_batch(self, tokens: np.ndarray) -> dict:
-        return {"tokens": self._put(tokens)}
+        cfg = self.lm.cfg
+        toks = self._put(tokens)
+        if cfg.input_mode == "embeds":
+            # VLM stub frontend: embed text bytes through the text table
+            return {"embeds": self.lm.embed[toks.long()]}
+        if cfg.input_mode == "encdec":
+            return {"enc_embeds": self.lm.embed[toks.long()], "tokens": toks}
+        return {"tokens": toks}
 
     @staticmethod
     def _host(logits: torch.Tensor) -> np.ndarray:

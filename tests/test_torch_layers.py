@@ -56,8 +56,12 @@ def test_rope_angles(theta):
 
 
 def test_rope_angles_refuses_mrope():
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TL.rope_angles(torch.zeros((3, 2, 4), dtype=torch.int32), 16, 1e4, (2, 3, 3))
+    """(3, B, S) positions need M-RoPE sections, as the reference asserts;
+    with them they are M-RoPE (test_torch_archs.py)."""
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.rope_angles(torch.zeros((3, 2, 4), dtype=torch.int32), 16, 1e4)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.rope_angles(torch.zeros((2, 3, 2, 4), dtype=torch.int32), 16, 1e4, (2, 3, 3))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -201,5 +205,17 @@ def test_paged_write_index():
 
 
 def test_qchunk_is_refused():
-    with pytest.raises(NotImplementedError, match="qchunk"):
-        TL.gqa_attention_qchunk()
+    """``attn_impl="qchunk"`` runs a monolithic prefill (test_torch_archs.py)
+    and is refused by the continued prefill over cached KV, whose blocked
+    softmax would sum in another order, as in the reference."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_reduced("phi4-mini-3.8b"), attn_impl="qchunk")
+    lm = LM(cfg, device="cpu")
+    with torch.inference_mode():
+        logits, caches = lm.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        assert logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()
+        with pytest.raises(NotImplementedError, match="qchunk"):
+            lm.prefill_cont(caches, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})

@@ -25,7 +25,7 @@ from repro_torch.models.layers import KVCache, PagedKV
 from repro_torch.serving import KVBlockPool
 from repro_torch.serving.engine import PAGED_KERNEL_ATOL, PAGED_KERNEL_RTOL
 
-ARCHS = ["stablelm-1.6b", "llama3-8b"]
+ARCHS = ["stablelm-1.6b", "llama3-8b", "phi4-mini-3.8b"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=PAGED_KERNEL_ATOL, rtol=PAGED_KERNEL_RTOL)}
 BS = 8
@@ -72,12 +72,16 @@ def copy_arenas(jarenas, pool: KVBlockPool) -> None:
 
 def test_configs_equal_the_reference_field_by_field():
     from repro.configs import get_config as jfull
-    for arch in ARCHS + ["mixtral-8x7b", "mixtral-8x22b", "hymba-1.5b", "xlstm-1.3b"]:
+    from repro.configs import list_archs as jlist
+    from repro_torch.configs import list_archs
+    assert list_archs() == jlist()
+    for arch in ARCHS + ["mixtral-8x7b", "mixtral-8x22b", "hymba-1.5b", "xlstm-1.3b",
+                         "minicpm-2b", "qwen2-vl-7b", "seamless-m4t-medium"]:
         assert dataclasses.asdict(get_reduced(arch)) == dataclasses.asdict(jget(arch))
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jfull(arch))
     assert isinstance(get_reduced("llama3-8b"), ModelConfig)
-    with pytest.raises(NotImplementedError, match="seamless-m4t-medium"):
-        get_config("seamless-m4t-medium")
+    with pytest.raises(KeyError, match="gpt-5"):       # as the reference's lookup
+        get_config("gpt-5")
 
 
 @torch.inference_mode()
@@ -257,38 +261,48 @@ def test_apply_stack_modes_against_reference(mode):
 @pytest.mark.parametrize("kind", ["swa", "moe", "moe_swa", "hymba_g", "hymba_l",
                                   "mlstm", "slstm", "enc", "xdec"])
 def test_other_block_kinds_raise_by_name(kind):
-    """``enc`` / ``xdec`` are not ported and raise by name; every other kind
-    builds, and refuses the prefix-KV and paged modes by name, as the
-    reference's ``apply_block`` does."""
+    """Every other kind builds, and refuses the prefix-KV and paged modes by
+    name, as the reference's ``apply_block`` does (``enc`` and ``xdec`` with
+    ``xdec``'s cross K / V over 5 encoder positions)."""
     cfg = get_reduced({"moe": "mixtral-8x7b", "moe_swa": "mixtral-8x7b",
                        "hymba_g": "hymba-1.5b", "hymba_l": "hymba-1.5b",
-                       "mlstm": "xlstm-1.3b", "slstm": "xlstm-1.3b"}.get(kind, "llama3-8b"))
+                       "mlstm": "xlstm-1.3b", "slstm": "xlstm-1.3b",
+                       "enc": "seamless-m4t-medium",
+                       "xdec": "seamless-m4t-medium"}.get(kind, "llama3-8b"))
     x = torch.zeros(1, 1, cfg.d_model)
-    if kind in ("enc", "xdec"):
-        with pytest.raises(NotImplementedError, match=kind):
-            TB.init_stack(torch.Generator().manual_seed(0), kind, 1, cfg, "cpu")
-        with pytest.raises(NotImplementedError):
-            TB.apply_block(kind, cfg, {}, x, {}, None, "train")
-        return
     p = TB.init_block(torch.Generator().manual_seed(0), kind, cfg, "cpu")
-    cache = TB.init_block_cache(kind, cfg, 1, 8, device="cpu")
+    cache = TB.init_block_cache(kind, cfg, 1, 8, enc_len=5, device="cpu")
+    if kind == "enc":
+        assert cache == ()
+    if kind == "xdec":
+        assert {"x_wq", "x_wk", "x_wv", "x_wo"} <= set(p) and p["norm_x"].dtype == torch.float32
+        assert cache[1].shape == cache[2].shape == (1, 5, cfg.n_kv_heads, cfg.hd)
     for mode in ("prefill_cont", "decode_paged"):
         with pytest.raises(NotImplementedError, match=f"{mode}.*'{kind}'"):
             TB.apply_block(kind, cfg, p, x, {}, cache, mode)
 
 
 def test_qchunk_and_unported_model_features_raise():
+    """What the reference refuses, the port refuses: ``qchunk`` in the
+    continued prefill, embeds input and M-RoPE in the paged decode step."""
     cfg = dataclasses.replace(get_reduced("llama3-8b"), attn_impl="qchunk")
     lm = LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="qchunk"), torch.inference_mode():
-        lm.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with torch.inference_mode():
+        _, caches = lm.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        with pytest.raises(NotImplementedError, match="qchunk"):
+            lm.prefill_cont(caches, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
     # LM.loss came with the training slice: a finite scalar on a reduced batch
     loss, aux = LM(get_reduced("llama3-8b"), device="cpu").loss(
         {"tokens": torch.zeros((2, 5), dtype=torch.int32)})
     assert loss.dim() == 0 and torch.isfinite(loss) and float(aux["tokens"]) == 8
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        LM(dataclasses.replace(get_reduced("llama3-8b"), mrope_sections=(2, 3, 3)),
-           device="cpu")
+    for arch in ("qwen2-vl-7b",
+                 dataclasses.replace(get_reduced("llama3-8b"), mrope_sections=(2, 3, 3))):
+        cfg = get_reduced(arch) if isinstance(arch, str) else arch
+        m = LM(cfg, device="cpu")
+        with pytest.raises(ValueError, match="M-RoPE"), torch.inference_mode():
+            m.decode_step_paged([], torch.zeros((1, 1), dtype=torch.int32),
+                                torch.zeros((1,), dtype=torch.int32),
+                                torch.ones((1, 1), dtype=torch.int32), block_size=8)
 
 
 def test_device_rule_and_seeded_init():

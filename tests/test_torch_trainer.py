@@ -164,7 +164,7 @@ def test_async_checkpointer():
 
 # ------------------------------------------------ tests/test_fault_tolerance.py
 def setup(steps, td, **kw):
-    lm, _, _ = small_setup("minicpm-2b")
+    lm, _, _ = small_setup("phi4-mini-3.8b")      # as tests/test_fault_tolerance.py
     tc = TrainConfig(steps=steps, log_every=0, ckpt_dir=td, ckpt_every=5, ckpt_async=False,
                      optim=OptimConfig(lr=3e-3, warmup_steps=2, total_steps=steps), **kw)
     pipe = DataPipeline(DataConfig(vocab_size=lm.cfg.vocab_size, seq_len=32, global_batch=8))

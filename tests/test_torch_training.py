@@ -42,7 +42,7 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.tree import leaves, path_str, flatten_with_path
 
 FAMILIES = ("stablelm-1.6b", "llama3-8b", "minicpm-2b", "mixtral-8x7b", "xlstm-1.3b",
-            "hymba-1.5b")
+            "hymba-1.5b", "phi4-mini-3.8b", "qwen2-vl-7b", "seamless-m4t-medium")
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -68,15 +68,19 @@ def np_tree(tree):
 
 @functools.lru_cache(maxsize=None)
 def reference(arch):
-    """The reference's fp32 model, parameters, a token batch whose 139
-    targets fill one loss chunk of 128 and a remainder, and its loss and
-    gradients."""
+    """The reference's fp32 model, parameters, a batch whose 139 target
+    tokens fill one loss chunk of 128 and a remainder (an encoder-decoder
+    also gets 16 positions of encoder input), and its loss and gradients."""
     jcfg = dataclasses.replace(jget(arch), dtype="float32")
     jlm = JLM(jcfg)
     params = jlm.init(jax.random.PRNGKey(0))
-    toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 140)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    toks = {"tokens": rng.integers(0, jcfg.vocab_size, (2, 140)).astype(np.int32)}
+    if jcfg.enc_pattern:
+        toks["enc_embeds"] = rng.standard_normal((2, 16, jcfg.d_model)).astype(np.float32)
     (loss, aux), grads = jax.value_and_grad(
-        lambda p: jlm.loss(p, {"tokens": jnp.asarray(toks)}), has_aux=True)(params)
+        lambda p: jlm.loss(p, {k: jnp.asarray(a) for k, a in toks.items()}),
+        has_aux=True)(params)
     return params, toks, float(loss), float(aux["tokens"]), jax.tree.leaves(grads)
 
 
@@ -91,7 +95,7 @@ def port_lm(arch, params, remat="full"):
 def test_loss_and_gradients_against_jax_value_and_grad(arch, remat):
     params, toks, jloss, jtokens, jgrads = reference(arch)
     lm = port_lm(arch, params, remat)
-    loss, aux = lm.loss({"tokens": torch.from_numpy(toks)})
+    loss, aux = lm.loss({k: torch.from_numpy(a) for k, a in toks.items()})
     value = float(loss.detach())
     assert loss.dtype == torch.float32 and loss.dim() == 0 and torch.isfinite(loss)
     assert aux["loss"] is loss and float(aux["tokens"]) == jtokens == 2 * 139
@@ -207,18 +211,20 @@ def test_pipeline_batches_equal_bitwise(case):
 
 
 # --------------------------------------------------------------- checkpoint
-def _state_pair():
+def _state_pair(arch="minicpm-2b"):
     """The same fp32 training state in both packages: parameters, moments
     after one step, and an error state."""
-    params, _, _, _, jgrads_flat = reference("minicpm-2b")
-    jcfg = dataclasses.replace(jget("minicpm-2b"), dtype="float32")
+    params, _, _, _, jgrads_flat = reference(arch)
+    jcfg = dataclasses.replace(jget(arch), dtype="float32")
     jgrads = jax.tree.unflatten(jax.tree.structure(params), jgrads_flat)
     p1, opt, _ = jopt.apply_updates(params, jgrads, jopt.init_opt_state(params),
                                     jopt.OptimConfig())
     jstate = {"params": p1, "opt": opt, "err": jcomp.init_error_state(p1)}
-    lm = from_jax_params(np_tree(p1), dataclasses.replace(get_reduced("minicpm-2b"),
+    lm = from_jax_params(np_tree(p1), dataclasses.replace(get_reduced(arch),
                                                           dtype="float32"), device="cpu")
-    assert jcfg.tie_embeddings and "lm_head" not in p1
+    assert jcfg.tie_embeddings == ("lm_head" not in p1)
+    # the encoder's parameters sort between embed and final_norm on both sides
+    assert bool(jcfg.enc_pattern) == ("enc_stacks" in lm.param_tree())
     tstate = {"params": lm.param_tree(), "opt": opt_state_from_jax(np_tree(opt)),
               "err": tree_from_jax(np_tree(jstate["err"]))}
     return jstate, tstate
@@ -232,9 +238,10 @@ def _bf16_pair():
     return j, tree_from_jax(np_tree(j))
 
 
-@pytest.mark.parametrize("which", ["fp32_state", "bf16"])
+@pytest.mark.parametrize("which", ["fp32_state", "bf16", "encdec_state"])
 def test_checkpoint_files_equal_and_restore_across_packages(which, tmp_path):
-    jtree, ttree = _state_pair() if which == "fp32_state" else _bf16_pair()
+    jtree, ttree = {"fp32_state": _state_pair, "bf16": _bf16_pair,
+                    "encdec_state": lambda: _state_pair("seamless-m4t-medium")}[which]()
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     jckpt.save(jdir, 7, jtree, extra={"note": "x"})
     tckpt.save(tdir, 7, ttree, extra={"note": "x"})

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases archs            # phi4-mini, qwen2-vl, seamless-m4t
     python3 chip_smoke.py --phases train,kernels    # train minicpm-2b, resume, serve it
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
+    python3 chip_smoke.py --phases mesh             # the 1x1 mesh: sharded == unsharded
 
 Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
 (one ``nvcc`` per source, all started together), then:
@@ -47,6 +48,16 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   and, where one exists, the PyTorch call that computes the same function;
 - ``ops``: ``flash_attention`` and ``decode_attention`` through
   ``repro_torch.kernels.ops``, the entry points the reference reaches them by;
+- ``mesh``: the distributed slice on one card, through NCCL at world size 1:
+  ``ServeEngine(mesh=)`` on a 1x1 mesh at ``stablelm-1.6b``'s full size with
+  phase ``order_by``'s weights, bitwise against the unsharded engine (probe
+  logits, ``quick`` and ``pointwise`` orders and ledgers, a paged
+  ``generate``), the ``dp_probe_slices`` counters, no leaked block, an
+  ``fsdp`` plan; ``moe_impl="sharded"`` against ``"global"`` on
+  ``mixtral-8x7b`` at full width with 4 of 32 layers; and ``ef_allreduce``
+  of a 2^20-element leaf.  The sharded engine decodes through the dense
+  paged path (the reference refuses the paged kernel on a mesh), so this
+  path launches no kernel;
 - ``main``, ``llama`` (the serving path of the first slice), and ``profile``
   (not in the default run).
 
@@ -84,6 +95,8 @@ from repro_torch.core.optimizer import optimizer as optimizer_mod  # noqa: E402
 from repro_torch.core.optimizer.borda import borda_matrix  # noqa: E402
 from repro_torch.core.oracles.model_oracle import ModelOracle  # noqa: E402
 from repro_torch.data import DataConfig, DataPipeline  # noqa: E402
+from repro_torch.distributed import ShardingPlan  # noqa: E402
+from repro_torch.distributed.context import shard_context  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import borda_count as bc  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -93,6 +106,7 @@ from repro_torch.kernels import moe_gating as mg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import topk_scores as tk  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -102,6 +116,7 @@ from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serving import BatchScheduler, ServeEngine  # noqa: E402
 from repro_torch.serving.engine import PAGED_KERNEL_ATOL, PAGED_KERNEL_RTOL  # noqa: E402
 from repro_torch.training import OptimConfig, TrainConfig, Trainer  # noqa: E402
+from repro_torch.training.compression import compress_leaf, ef_allreduce  # noqa: E402
 from repro_torch.training.fault_tolerance import SimulatedFailure  # noqa: E402
 from repro_torch.training.tree import flatten_with_path, leaves, path_str  # noqa: E402
 
@@ -2033,6 +2048,111 @@ def phase_llama(device, card, seed) -> None:
         drive(lm, card, max_new=32, pool_blocks=768, assert_tokens=strict, tag=f"llama.{dtype}")
 
 
+MESH_PATHS = ("quick", "pointwise")
+MESH_MOE = dict(arch="mixtral-8x7b", depth=4, batch=(2, 32))
+EF_LEAF = 1 << 20
+
+
+def phase_mesh(device, card, seed) -> dict:
+    """The distributed slice on one card: a 1x1 ("data", "model") mesh over a
+    world-1 NCCL group.  Every check is exact but the MoE loss (the
+    reference's 1e-3) and ``ef_allreduce`` (rtol 1e-6)."""
+    import torch.distributed as dist
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(1, 1, device=device)
+    world, backend = dist.get_world_size(), dist.get_backend()
+
+    def line(tag, t0, **kw):
+        torch.cuda.synchronize()
+        say(f"mesh.{tag}", card=card, wall_seconds=time.perf_counter() - t0, world_size=world,
+            backend=backend, mesh="1x1", peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            **kw)
+
+    cfg = get_config("stablelm-1.6b")
+    lm = seeded_lm(cfg, device, seed)            # phase order_by's weights
+    keys = as_keys(PASSAGES)
+    kw = dict(paged_kernel=False, max_new_tokens=16)
+    base = ServeEngine(lm, **kw)
+    eng = ServeEngine(lm, mesh=mesh, **kw)
+    probes = ([eng.score_parts(p, QUERY) for p in PASSAGES]
+              + [eng._compare_parts(a, PASSAGES[0], QUERY) for a in PASSAGES[1:]])
+    reset_launches()                           # ---- the mesh path starts here
+    t0 = time.perf_counter()
+    want = base.submit_probes(probes)
+    got = eng.submit_probes(probes)
+    assert got.shape == (len(probes), cfg.vocab_size) and np.isfinite(got).all()
+    assert np.array_equal(got, want), float(np.abs(got - want).max())
+    line("probes", t0, arch=cfg.name, dtype=cfg.dtype, layers=cfg.decoder_layers(),
+         rows=len(probes), bitwise=True)
+    for path in MESH_PATHS:
+        t0 = time.perf_counter()
+        qd = dict(path=path, rationale=0)
+        bres, _, bledger, _, _ = solo(base, keys, qd)
+        sres, _, sledger, delta, _ = solo(eng, keys, qd)
+        assert len(sres.order) == 5 and sres.uids() == bres.uids(), (sres.uids(), bres.uids())
+        assert sledger == bledger, f"{path}: the sharded engine's ledger differs"
+        line("query", t0, path=path, order=sres.uids(), n_calls=sres.n_calls,
+             submissions=delta[0], orders_equal=True, ledgers_equal=True)
+    t0 = time.perf_counter()
+    outs = eng.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)
+    assert outs == base.generate(GEN_PROMPTS, max_new_per=GEN_LIMITS)
+    assert_no_leak(eng)
+    assert_no_leak(base)
+    line("generate", t0, rows=len(GEN_PROMPTS), decode_tokens=eng.stats.decode_tokens,
+         tokens_equal=True, leaked_blocks=0)
+    t0 = time.perf_counter()
+    repl = ServeEngine(lm, mesh=mesh, dp_probe_slices=False, **kw)
+    assert np.array_equal(repl.submit_probes(probes), want)
+    st, rst = eng.stats, repl.stats
+    assert st.dp_sharded_submissions > 0 and rst.dp_sharded_submissions == 0
+    assert rst.dp_replicated_submissions > 0
+    line("counters", t0, dp_sharded_submissions=st.dp_sharded_submissions,
+         dp_replicated_submissions=st.dp_replicated_submissions,
+         replicated_engine=dict(dp_sharded_submissions=rst.dp_sharded_submissions,
+                                dp_replicated_submissions=rst.dp_replicated_submissions),
+         replicated_logits_equal=True)
+    t0 = time.perf_counter()
+    fsdp = ServeEngine(lm, mesh=mesh, plan=ShardingPlan(fsdp=True), **kw)
+    assert np.array_equal(fsdp.submit_probes(probes), want)
+    line("fsdp", t0, logits_equal=True)
+    launches = read_launches()                 # ---- and ends here
+    del base, eng, repl, fsdp, lm
+    release()
+
+    t0 = time.perf_counter()
+    mcfg = family_config(MESH_MOE["arch"], MESH_MOE["depth"])
+    glob = seeded_lm(dataclasses.replace(mcfg, moe_impl="global"), device, seed)
+    shard = LM.from_tree(dataclasses.replace(mcfg, moe_impl="sharded"),
+                         glob.param_tree()).sharded(mesh)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, mcfg.vocab_size, MESH_MOE["batch"]).astype(np.int32)).to(device)
+    with torch.inference_mode():
+        loss_g = float(glob.loss({"tokens": toks})[0])
+        logits_g = glob.prefill({"tokens": toks})[0]
+        with shard_context(mesh, ("data",)):
+            loss_s = float(shard.loss({"tokens": toks})[0])
+            logits_s = shard.prefill({"tokens": toks})[0]
+    diff = float((logits_s.float() - logits_g.float()).abs().max())
+    assert math.isfinite(loss_g) and abs(loss_s - loss_g) <= 1e-3, (loss_s, loss_g)
+    line("moe_sharded", t0, arch=mcfg.name, layers=mcfg.decoder_layers(), tokens=list(toks.shape),
+         loss_global=loss_g, loss_sharded=loss_s, loss_tolerance=1e-3,
+         last_logits_max_abs_diff=diff)
+    del glob, shard, logits_g, logits_s
+    release()
+
+    t0 = time.perf_counter()
+    g = torch.randn(EF_LEAF, generator=torch.Generator(device).manual_seed(seed), device=device)
+    q, scale, _ = compress_leaf(g, torch.zeros_like(g))
+    out = ef_allreduce(mesh, ("data",), q, scale)
+    torch.testing.assert_close(out, q.float() * scale, rtol=1e-6, atol=0.0)
+    line("ef_allreduce", t0, elements=EF_LEAF, rtol=1e-6,
+         max_abs_err=float((out - q.float() * scale).abs().max()))
+    del mesh
+    dist.destroy_process_group()
+    return launches
+
+
 def traced(fn, card, tag, **extra) -> None:
     """Run ``fn`` once untimed (warm-up), once on the host clock, once under
     torch.profiler; report the device's busy time, its idle share of the
@@ -2127,7 +2247,7 @@ def phase_profile(device, card, seed) -> None:
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama"
+DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama,mesh"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
@@ -2135,7 +2255,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
                     help="comma-separated subset of order_by,families,archs,train,kernels,"
-                         "ops,main,llama,profile")
+                         "ops,main,llama,mesh,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2171,6 +2291,8 @@ def main(argv=None) -> int:
         launches_by_path["serve"] = phase_main(device, card, args.seed)
     if "llama" in phases:
         phase_llama(device, card, args.seed)
+    if "mesh" in phases:
+        launches_by_path["mesh"] = phase_mesh(device, card, args.seed)
     if "profile" in phases:
         phase_profile(device, card, args.seed)
     if kernels is not None and {"order_by", "families", "train", "ops"} <= phases:

@@ -1,3 +1,4 @@
-"""Launchers of the port.  Counterpart of ``src/repro/launch/``: ``serve`` and
-``train`` (single device) are ported; the mesh, dry-run, roofline, report and
-pricing launchers come with the distributed slice."""
+"""Launchers of the port.  Counterpart of ``src/repro/launch/``: ``serve`` (one
+device or a mesh), ``train`` (one device) and ``mesh`` are ported; the
+dry-run, roofline, report and pricing tooling comes with the launch-tooling
+slice."""

@@ -1,15 +1,23 @@
 """Serving launcher: hosts a model behind the ORDER BY ModelOracle and runs a
 semantic ORDER BY query against it.
 
-Counterpart of ``src/repro/launch/serve.py``, single device.  Same flags, and
-one more: ``--device`` (default ``cuda``), because the port's entry points
-need the CPU asked for explicitly.  ``--mesh`` and ``--fsdp`` raise
-``NotImplementedError``: sharded serving comes with the distributed slice.
-The weights are random, drawn from ``--seed`` (the repository holds no
-checkpoint)::
+Counterpart of ``src/repro/launch/serve.py``.  Same flags, and one more:
+``--device`` (default ``cuda``), because the port's entry points need the CPU
+asked for explicitly.  The weights are random, drawn from ``--seed`` (the
+repository holds no checkpoint)::
 
     python -m repro_torch.launch.serve --full --query "degree of positivity"
     python -m repro_torch.launch.serve --device cpu --reduced
+
+Sharded serving: ``--mesh DxM`` serves on a ("data", "model") mesh of D*M
+processes, one per device: probe rounds split into per-data-shard row
+slices, decode runs tensor-parallel over the model axis, and ``--fsdp``
+additionally shards the weights over the data axes.  ``--mesh 1x1`` runs in
+one process; a larger mesh runs under ``torchrun``, and only rank 0
+prints::
+
+    python -m repro_torch.launch.serve --mesh 1x1 --full
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 2x1 --device cpu --reduced
 """
 from __future__ import annotations
 
@@ -17,10 +25,13 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core import as_keys, llm_order_by
 from repro_torch.core.oracles.model_oracle import ModelOracle
+from repro_torch.distributed.sharding import ShardingPlan
+from repro_torch.launch.mesh import local_device, parse_mesh
 from repro_torch.models import LM
 from repro_torch.serving import ServeEngine
 
@@ -54,22 +65,28 @@ def main(argv=None) -> None:
     ap.add_argument("--budget", type=float, default=None)
     ap.add_argument("--items", nargs="*", default=None)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="not ported yet (the distributed slice)")
+                    help="serve on a data x model mesh (e.g. 2x1, 1x2), one "
+                         "process per device")
     ap.add_argument("--fsdp", action="store_true",
-                    help="not ported yet (the distributed slice)")
+                    help="also shard weights over the data axes")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on; the CPU only when asked for")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh or args.fsdp:
-        raise NotImplementedError(
-            "--mesh/--fsdp (sharded serving) are not ported yet: they come "
-            "with the distributed slice")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    lm = make_lm(cfg, torch.device(args.device), args.seed)
-    engine = ServeEngine(lm, max_new_tokens=16, device=args.device)
+    device = local_device(args.device)
+    owns_group = args.mesh is not None and not dist.is_initialized()
+    mesh = parse_mesh(args.mesh, device=device) if args.mesh else None
+    if args.fsdp and mesh is None:
+        raise SystemExit("--fsdp requires --mesh")
+    # every process draws the same weights from the seed, then keeps its
+    # slice of them
+    lm = make_lm(cfg, device, args.seed)
+    engine = ServeEngine(lm, max_new_tokens=16, device=device, mesh=mesh,
+                         plan=ShardingPlan(fsdp=args.fsdp) if mesh else None)
     oracle = ModelOracle(engine)
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a: None)
 
     keys = as_keys(args.items or ITEMS)
     t0 = time.perf_counter()
@@ -77,20 +94,23 @@ def main(argv=None) -> None:
         keys, args.query, oracle, path=args.path, descending=True,
         limit=args.limit, budget=args.budget, strategy=args.strategy,
         sample_size=min(8, len(keys)))
-    print(f"arch={cfg.name} path={result.path} calls={result.n_calls} "
-          f"cost=${result.cost:.5f}")
+    say(f"arch={cfg.name} path={result.path} calls={result.n_calls} "
+        f"cost=${result.cost:.5f}")
     if report is not None:
-        print(f"optimizer: chose={report.chosen.label} reason={report.reason} "
-              f"membership={report.membership_rate:.2f}")
+        say(f"optimizer: chose={report.chosen.label} reason={report.reason} "
+            f"membership={report.membership_rate:.2f}")
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
     for i, k in enumerate(result.order):
-        print(f"  {i+1}. {k.text}")
+        say(f"  {i+1}. {k.text}")
     tps = engine.stats.decode_tokens / dt if dt > 0 else 0.0
-    print(f"engine stats: {engine.stats}")
-    print(f"throughput: decode_tokens={engine.stats.decode_tokens} "
-          f"wall={dt:.3f}s decode_tokens_per_s={tps:.1f}")
+    mesh_note = f" mesh={args.mesh}" if args.mesh else ""
+    say(f"engine stats: {engine.stats}")
+    say(f"throughput:{mesh_note} decode_tokens={engine.stats.decode_tokens} "
+        f"wall={dt:.3f}s decode_tokens_per_s={tps:.1f}")
+    if owns_group:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

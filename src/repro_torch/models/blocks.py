@@ -11,8 +11,18 @@ cross-attention over the encoder's output, + FFN), in modes ``train``,
 ``attn`` only, as in the reference.  ``attn_impl`` picks the sequence
 attention: ``einsum``, ``bf16`` or ``qchunk`` (query-blocked).  In mode
 ``train`` with gradients on, each layer is rematerialised as ``cfg.remat``
-says (:func:`apply_stack`).  Left for the distributed slice: the sharded MoE
-dispatch (``moe_impl="sharded"``), which needs a mesh.
+says (:func:`apply_stack`).
+
+On a mesh (the serving engine's ``distributed.context.shard_context``) a
+layer gets this process's slice of its parameters and is tensor-parallel in
+the Megatron style: ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` and the
+experts' F dim column-split, whole heads only, ``wo`` / ``w_down`` row-split
+and their products summed over the ``model`` group.  Head counts are read off
+the weights; a product is summed exactly when its contracted dim is smaller
+than the config's, so without a mesh nothing changes.  ``moe_impl="sharded"``
+dispatches each data shard's own tokens (:func:`~.moe.moe_ffn_sharded`); the
+global dispatch of a row-split batch ranks capacity over the whole batch,
+gathered over the data axes.
 
 A stack of ``n`` layers keeps its parameters stacked with a leading layer dim,
 as the reference does; where the reference scans over that dim, the port runs
@@ -37,13 +47,17 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.context import (constrain, get_shard_context, local_rows,
+                                   model_sum, pin_rows, rows_gather,
+                                   rows_split)
 from .config import ModelConfig
 from .layers import (KVCache, PagedKV, apply_rope, causal_mask, dtype_of,
                      full_mask, gqa_attention, gqa_attention_bf16,
                      gqa_attention_qchunk,
-                     paged_decode_attention_dense, paged_write,
+                     paged_attend_dense, paged_decode_attention_dense,
+                     paged_write,
                      paged_write_index, rms_norm, stacked_dense_init, swiglu)
-from .moe import init_moe_params, moe_ffn
+from .moe import init_moe_params, moe_ffn, moe_ffn_sharded
 from .ssm import (init_ssm_params, init_ssm_state, ssm_prefill_state,
                   ssm_sequence, ssm_step)
 from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
@@ -194,9 +208,36 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
 
 
 # ---------------------------------------------------------------- attention
+def _split_sum(y, w, full: int):
+    """``y``, a product through ``w``, summed over the model group when
+    ``w`` is row-split (its input dim smaller than ``full``)."""
+    return model_sum(y) if w.shape[-2] != full else y
+
+
+def _out_proj(p, out, cfg: ModelConfig):
+    return _split_sum(out.reshape(*out.shape[:2], -1) @ p["wo"], p["wo"],
+                      cfg.n_heads * cfg.hd)
+
+
+def _ffn(h, p, cfg: ModelConfig):
+    return _split_sum(swiglu(h, p["w_gate"], p["w_up"], p["w_down"]),
+                      p["w_down"], cfg.d_ff)
+
+
+def _moe(p, h, cfg: ModelConfig):
+    sctx = get_shard_context()
+    if cfg.moe_impl == "sharded" and sctx is not None:
+        return moe_ffn_sharded(p, h, cfg.moe, *sctx)
+    # global dispatch: capacity is ranked over the whole batch, so a
+    # row-split batch routes all rows and keeps its own
+    return _split_sum(local_rows(moe_ffn(p, rows_gather(h), cfg.moe)),
+                      p["w_down"], cfg.d_ff)
+
+
 def _qkv(p, x, cfg: ModelConfig, angles):
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd    # local heads
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     k = (x @ p["wk"]).reshape(b, s, kv, hd)
     v = (x @ p["wv"]).reshape(b, s, kv, hd)
@@ -218,14 +259,14 @@ def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False):
         fn = (gqa_attention_bf16 if cfg.attn_impl in ("bf16", "qchunk")
               else gqa_attention)
         out = fn(q, k, v, mask)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"], (k, v)
+    return _out_proj(p, out, cfg), (k, v)
 
 
 def _attn_decode(p, x, cfg, angles, cache: KVCache, position: int):
     q, k, v = _qkv(p, x, cfg, angles)
     cache = cache.update(k, v, position)
     out = gqa_attention(q, cache.k, cache.v, cache.decode_mask())
-    return out.reshape(*x.shape[:2], -1) @ p["wo"], cache
+    return _out_proj(p, out, cfg), cache
 
 
 def _attn_decode_paged(p, x, cfg, angles, cache: PagedKV, ctx):
@@ -233,15 +274,28 @@ def _attn_decode_paged(p, x, cfg, angles, cache: PagedKV, ctx):
     pool, each row at its OWN absolute position.  The default dense path
     equals :func:`_attn_decode` per row; ``ctx["paged_impl"] == "kernel"``
     runs the CUDA paged attention kernel over the block tables (allclose, not
-    bitwise: the engine's deployment switch)."""
+    bitwise: the engine's deployment switch).
+
+    A row-split step on a mesh keeps the arena replicated over the data
+    axes: every process writes every row's new K/V (gathered over the data
+    axes, at the whole step's write index ``ctx["paged_write_index"]``),
+    then attends over its own rows, so a row that moves to another data
+    slice between steps finds its blocks current."""
     qkv = _qkv(p, x, cfg, angles)
     if ctx.get("paged_impl", "dense") == "kernel":
         out, cache = _paged_decode_kernel(qkv, cache, ctx)
+    elif rows_split():
+        q_new, k_new, v_new = qkv
+        paged_write(cache, rows_gather(k_new), rows_gather(v_new),
+                    *ctx["paged_write_index"])
+        out = paged_attend_dense(q_new, cache, ctx["paged_tables"],
+                                 ctx["paged_positions"],
+                                 ctx["paged_block_size"])
     else:
         out, cache = paged_decode_attention_dense(
             qkv, cache, ctx["paged_tables"], ctx["paged_positions"],
             ctx["paged_block_size"])
-    return out.reshape(*x.shape[:2], -1) @ p["wo"], cache
+    return pin_rows(_out_proj(p, out, cfg)), cache
 
 
 def _paged_decode_kernel(qkv, paged: PagedKV, ctx):
@@ -288,7 +342,7 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
     v_all = torch.cat([vc, v], dim=1)
     mask = causal_mask(s, start + s, 0, q_offset=start, device=x.device)
     out = fn(q, k_all, v_all, mask)
-    return (out.reshape(b, s, -1) @ p["wo"],
+    return (_out_proj(p, out, cfg),
             KVCache.from_prefill(k_all, v_all, 0, reserve))
 
 
@@ -343,9 +397,8 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
         x = x + rs * a
         h = rms_norm(x, p["norm2"], eps)
         if kind in ("moe", "moe_swa"):
-            # single device: the reference's sharded dispatch needs a mesh
-            return x + rs * moe_ffn(p["moe"], h, cfg.moe), new_cache
-        return x + rs * swiglu(h, **p["ffn"]), new_cache
+            return x + rs * _moe(p["moe"], h, cfg), new_cache
+        return x + rs * _ffn(h, p["ffn"], cfg), new_cache
 
     if kind in ("hymba_g", "hymba_l"):
         h = rms_norm(x, p["norm1"], eps)
@@ -364,7 +417,7 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
         fused = 0.5 * (rms_norm(a, p["fuse_a"], eps) + rms_norm(s_out, p["fuse_s"], eps))
         x = x + rs * fused
         h = rms_norm(x, p["norm2"], eps)
-        return x + rs * swiglu(h, **p["ffn"]), new_cache
+        return x + rs * _ffn(h, p["ffn"], cfg), new_cache
 
     if kind == "xdec":
         h = rms_norm(x, p["norm1"], eps)
@@ -384,7 +437,7 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
                 new_cache = (KVCache.from_prefill(k, v, 0, reserve), xk, xv)
         x = x + rs * a
         h = rms_norm(x, p["norm2"], eps)
-        return x + rs * swiglu(h, **p["ffn"]), new_cache
+        return x + rs * _ffn(h, p["ffn"], cfg), new_cache
 
     h = rms_norm(x, p["norm1"], eps)
     if kind == "mlstm":
@@ -435,6 +488,7 @@ def apply_stack(kind: str, cfg: ModelConfig, stack, x, ctx, cache=None,
             continue
         c = map_cache(lambda leaf: leaf[i], cache) if cache is not None else None
         x, c2 = apply_block(kind, cfg, p, x, ctx, c, mode)
+        x = constrain(x)
         if mode in ("prefill", "prefill_cont"):
             emitted.append(c2)
         elif mode == "decode":

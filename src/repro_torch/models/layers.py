@@ -253,16 +253,23 @@ def paged_decode_attention_dense(q, paged: PagedKV, tables, positions,
                                  block_size: int):
     """Gather-then-attend paged decode: one query token per row against the
     row's block run.  Writes the step's K/V into ``tables[row, pos // bs]``
-    slot ``pos % bs`` (in place), gathers each row's run into a dense (B, MAXB*bs) view, and runs the
-    same :func:`gqa_attention` as the dense ring path, positions ``> pos``
-    masked.
+    slot ``pos % bs`` (in place), then :func:`paged_attend_dense`.
 
     q = (q_new, k_new, v_new), each (B, 1, ., hd); tables (B, MAXB) int32;
     positions (B,) int32 absolute write position per row."""
     q_new, k_new, v_new = q
-    b = k_new.shape[0]
     paged_write(paged, k_new, v_new,
                 *paged_write_index(tables, positions, block_size))
+    return paged_attend_dense(q_new, paged, tables, positions, block_size), paged
+
+
+def paged_attend_dense(q_new, paged: PagedKV, tables, positions,
+                       block_size: int):
+    """The attention half of :func:`paged_decode_attention_dense`: gathers
+    each row's run into a dense (B, MAXB*bs) view and runs the same
+    :func:`gqa_attention` as the dense ring path, positions ``> pos``
+    masked."""
+    b = q_new.shape[0]
     maxb = tables.shape[1]
     flat = tables.reshape(-1)
     kg = paged.k.index_select(0, flat).reshape(b, maxb * block_size,
@@ -271,8 +278,7 @@ def paged_decode_attention_dense(q, paged: PagedKV, tables, positions,
                                                *paged.v.shape[2:])
     valid = (torch.arange(maxb * block_size, dtype=torch.int32,
                           device=tables.device)[None, :] <= positions[:, None])
-    out = gqa_attention(q_new, kg, vg, valid[:, None, None, None, :])
-    return out, paged
+    return gqa_attention(q_new, kg, vg, valid[:, None, None, None, :])
 
 
 # -------------------------------------------------------------------- SwiGLU

@@ -19,6 +19,16 @@ the decoder in every mode but decode), ``embeds`` input and M-RoPE
 stacks, as in the reference).  :meth:`LM.param_tree` gives the parameters in
 the reference's nested pytree, which the trainer and checkpoints walk.
 
+On a mesh, :meth:`LM.sharded` gives the LM of this process: its slice of
+every parameter under ``distributed.sharding.param_specs`` (tensor-parallel
+over ``model``, with ``fsdp`` also over the data axes, gathered back per
+stack at use, as the reference's GSPMD gathers per stack).  Run it under the
+engine's ``distributed.context.shard_context``: the vocab-parallel embedding
+is a masked local lookup summed over ``model``, the vocab-split logits are
+gathered over it, and the blocks sum their row-parallel products
+(``blocks.py``).  :func:`check_tensor_parallel` says which configs a model
+axis above 1 can take.
+
 Batch dict keys: ``tokens`` (B, S) integer ids; ``embeds`` (B, S, D)
 precomputed frontend embeddings, used instead of tokens; ``enc_embeds``
 (B, S_enc, D) the encoder's input (encoder-decoder); ``positions`` (B, S),
@@ -35,12 +45,44 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.context import (constrain, gather_over, get_shard_context,
+                                   model_gather, model_rank, model_sum,
+                                   pin_rows)
+from ..distributed.sharding import (MODEL, ShardingPlan, axes_size,
+                                    axis_size, local_shard, map_with_path,
+                                    param_specs)
 from .blocks import apply_stack, init_block_cache, init_stack, map_cache
 from .config import ModelConfig
 from .layers import dtype_of, rms_norm, rope_angles
 
 NESTED = ("ffn", "moe", "ssm")
 LOSS_CHUNK = 128          # the reference's sequence chunk of the loss
+TP_KINDS = ("attn", "moe", "moe_swa")
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+    """A model axis of ``model`` > 1 splits whole heads (the reference's
+    GSPMD may split a head's hd across shards; eager per-shard attention
+    cannot) of token-input decoder stacks of kinds ``attn``, ``moe`` and
+    ``moe_swa``.  Every config runs with a model axis of 1."""
+    if model == 1:
+        return
+    kinds = sorted({k for k, _ in tuple(cfg.pattern) + tuple(cfg.enc_pattern)}
+                   - set(TP_KINDS))
+    if kinds or cfg.enc_pattern or cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (model axis {model}) covers "
+            f"token-input decoder stacks of kinds {', '.join(TP_KINDS)}; "
+            f"kinds {kinds}, input {cfg.input_mode!r} and encoders come with "
+            f"a later slice")
+    if cfg.n_heads % model or cfg.n_kv_heads % model:
+        raise ValueError(
+            f"{cfg.name}: model axis {model} must divide n_heads "
+            f"{cfg.n_heads} and n_kv_heads {cfg.n_kv_heads} (whole heads per "
+            f"shard)")
+    if any(k in ("moe", "moe_swa") for k, _ in cfg.pattern) and cfg.d_ff % model:
+        raise ValueError(f"{cfg.name}: model axis {model} must divide the "
+                         f"experts' d_ff {cfg.d_ff}")
 
 
 def _flatten(stack: dict) -> dict:
@@ -72,6 +114,8 @@ class LM(nn.Module):
         CUDA and raises without it."""
         super().__init__()
         self.cfg = cfg
+        self._fsdp: dict = {}               # path -> [(dim, data axes)]
+        self._mesh = None
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -100,13 +144,80 @@ class LM(nn.Module):
             self.enc_norm = nn.Parameter(
                 torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev))
 
+    @classmethod
+    def from_tree(cls, cfg: ModelConfig, tree: dict) -> "LM":
+        """An LM holding the tensors of ``tree`` (a :meth:`param_tree` of
+        ``cfg``'s layout) without copying them."""
+        lm = cls.__new__(cls)
+        nn.Module.__init__(lm)
+        lm.cfg, lm._fsdp, lm._mesh = cfg, {}, None
+
+        def par(t):
+            return nn.Parameter(t.detach(), requires_grad=t.requires_grad)
+
+        def stacks(trees):
+            return nn.ModuleList(
+                nn.ParameterDict({k: par(v) for k, v in _flatten(st).items()})
+                for st in trees)
+
+        lm.embed, lm.final_norm = par(tree["embed"]), par(tree["final_norm"])
+        lm.stacks = stacks(tree["stacks"])
+        lm.lm_head = par(tree["lm_head"]) if "lm_head" in tree else None
+        lm.enc_stacks = lm.enc_norm = None
+        if "enc_stacks" in tree:
+            lm.enc_stacks = stacks(tree["enc_stacks"])
+            lm.enc_norm = par(tree["enc_norm"])
+        return lm
+
+    def sharded(self, mesh, plan: Optional[ShardingPlan] = None) -> "LM":
+        """This process's LM on ``mesh``: every parameter cut by
+        ``param_specs`` (a leaf replicated everywhere is shared, not
+        copied).  Leaves the plan's ``fsdp`` splits over the data axes are
+        gathered back per stack when a forward reads them."""
+        check_tensor_parallel(self.cfg, axis_size(mesh, MODEL))
+        tree = self.param_tree()
+        specs = param_specs(tree, mesh, plan or ShardingPlan())
+        lm = LM.from_tree(self.cfg, local_shard(tree, specs, mesh))
+        lm._mesh = mesh
+
+        def note(path, spec):
+            dims = [(i, e) for i, e in enumerate(spec)
+                    if e is not None and e != MODEL and axes_size(mesh, e) > 1]
+            if dims:
+                lm._fsdp[path] = dims
+
+        map_with_path(note, specs)
+        return lm
+
+    def _check_context(self) -> None:
+        if self._mesh is not None and get_shard_context() is None:
+            raise RuntimeError("a sharded LM runs under "
+                               "distributed.context.shard_context")
+
+    def _gathered(self, path: tuple, t):
+        for dim, axes in self._fsdp.get(path, ()):
+            t = gather_over(t, self._mesh, axes, dim)
+        return t
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
     def stack_params(self, i: int) -> dict:
-        """Stack ``i``'s parameters in the reference's nested layout."""
-        return _nest(self.stacks[i])
+        """Stack ``i``'s parameters in the reference's nested layout (fsdp
+        leaves gathered over the data axes)."""
+        p = _nest(self.stacks[i])
+        if self._fsdp:
+            p = map_with_path(
+                lambda path, t: self._gathered(("stacks", i) + path, t), p)
+        return p
+
+    def enc_stack_params(self, i: int) -> dict:
+        p = _nest(self.enc_stacks[i])
+        if self._fsdp:
+            p = map_with_path(
+                lambda path, t: self._gathered(("enc_stacks", i) + path, t), p)
+        return p
 
     def param_tree(self) -> dict:
         """Every parameter (the live tensors) in the reference's pytree:
@@ -126,7 +237,41 @@ class LM(nn.Module):
     def _embed_in(self, batch) -> torch.Tensor:
         if batch.get("embeds") is not None:
             return batch["embeds"].to(dtype_of(self.cfg.dtype))
-        return self.embed[batch["tokens"].long()] * self.cfg.embed_scale
+        return self._embed_tokens(batch["tokens"])
+
+    def _embed_tokens(self, tokens) -> torch.Tensor:
+        """Token embeddings times ``embed_scale``.  A vocab-split table
+        (this process holds rows ``[r*V/m, (r+1)*V/m)``) looks up the ids it
+        holds, zeros the rest and sums over ``model``, an exact sum since one
+        process contributes each row; a d_model-split table gathers its
+        columns."""
+        cfg = self.cfg
+        table = self.embed
+        v_loc, d_loc = table.shape
+        ids = tokens.long()
+        if v_loc != cfg.vocab_size:
+            ids = ids - model_rank() * v_loc
+            mine = (ids >= 0) & (ids < v_loc)
+            x = table[ids.clamp(0, v_loc - 1)]
+            x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+            return model_sum(x * cfg.embed_scale)
+        x = table[ids] * cfg.embed_scale
+        return model_gather(x, -1) if d_loc != cfg.d_model else x
+
+    def _head_product(self, h) -> torch.Tensor:
+        """``h @ head`` (B, S, V) with the (tied) head, whole over the
+        vocabulary: a vocab-split head's logits gathered over ``model``, a
+        d_model-split head's partial products summed over it."""
+        cfg = self.cfg
+        head = (self.embed.T if cfg.tie_embeddings
+                else self._gathered(("lm_head",), self.lm_head))
+        d_loc, v_loc = head.shape
+        if d_loc != cfg.d_model:
+            y = model_sum(h.narrow(-1, model_rank() * d_loc, d_loc) @ head)
+        else:
+            y = h @ head
+        return model_gather(y, -1) if v_loc != cfg.vocab_size else y
 
     def _angles(self, positions, seq: int, batch_dim: int):
         cfg = self.cfg
@@ -150,22 +295,23 @@ class LM(nn.Module):
         xe = batch["enc_embeds"].to(dtype_of(cfg.dtype))
         be, se, _ = xe.shape
         enc_ctx = dict(ctx_base, angles=self._angles(None, se, be))
-        for st, (kind, _n) in zip(self.enc_stacks, cfg.enc_pattern):
-            xe, _ = apply_stack(kind, cfg, _nest(st), xe, enc_ctx, None, "train")
+        for i, (kind, _n) in enumerate(cfg.enc_pattern):
+            xe, _ = apply_stack(kind, cfg, self.enc_stack_params(i), xe,
+                                enc_ctx, None, "train")
         return rms_norm(xe, self.enc_norm, cfg.norm_eps)
 
     def _head(self, x) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        return (x @ head) * cfg.logit_scale
+        return self._head_product(x) * cfg.logit_scale
 
     # --------------------------------------------------------------- forward
     def forward(self, batch, mode: str = "train", caches=None,
                 position: Optional[int] = None, reserve: int = 0):
         """Returns (hidden (B, S, D), new_caches_or_None)."""
         cfg = self.cfg
-        x = self._embed_in(batch)
+        self._check_context()
+        x = constrain(pin_rows(self._embed_in(batch)))
         b, s, _ = x.shape
         ctx: dict[str, Any] = {"reserve": reserve}
         if mode == "decode":
@@ -212,10 +358,9 @@ class LM(nn.Module):
         sl = s - 1
         chunk = min(LOSS_CHUNK, sl)
         n_chunks = sl // chunk
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
 
         def ce(h, t):
-            logits = (h @ head).float() * cfg.logit_scale
+            logits = self._head_product(h).float() * cfg.logit_scale
             logz = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, t[..., None])[..., 0]
             return (logz - gold).sum()
@@ -268,7 +413,8 @@ class LM(nn.Module):
         return self._head(x)[:, 0], caches
 
     def decode_step_paged(self, caches, tokens, positions, tables, *,
-                          block_size: int, impl: str = "dense"):
+                          block_size: int, impl: str = "dense",
+                          write_index=None):
         """One decode token per row against the block-paged KV pool.
 
         caches: list (one per stack) of :class:`~.layers.PagedKV` with leaves
@@ -280,20 +426,31 @@ class LM(nn.Module):
         Returns (logits (B, V), caches).  ``impl="dense"`` is the
         gather+attend path, equal per row to :meth:`decode_step` over a ring
         cache holding the same tokens; ``impl="kernel"`` runs the paged
-        attention kernel (kernels/paged_attention.py), allclose to it."""
+        attention kernel (kernels/paged_attention.py), allclose to it.
+
+        ``write_index``: on a mesh whose rows are split over the data axes,
+        the (block ids, slots) of every row of the step (``tokens`` ..
+        ``tables`` being this process's rows), where each process writes
+        every row's K/V so that the arena stays replicated."""
         cfg = self.cfg
         if cfg.input_mode != "tokens" or cfg.mrope_sections:
             raise ValueError("paged decode supports token-input, non-M-RoPE "
                              "archs only")
         if impl not in ("dense", "kernel"):
             raise ValueError(f"impl must be 'dense' or 'kernel', got {impl!r}")
-        x = self.embed[tokens.long()] * cfg.embed_scale
+        self._check_context()
+        if impl == "kernel" and write_index is not None:
+            raise ValueError("the paged attention kernel takes no row-split "
+                             "step (write_index)")
+        x = pin_rows(self._embed_tokens(tokens))
         b = tokens.shape[0]
         ctx: dict[str, Any] = {
             "angles": self._angles(positions[:, None], 1, b),
             "paged_tables": tables, "paged_positions": positions,
             "paged_block_size": block_size, "paged_impl": impl,
         }
+        if write_index is not None:
+            ctx["paged_write_index"] = write_index
         for i, (kind, _n) in enumerate(cfg.pattern):
             x, _ = apply_stack(kind, cfg, self.stack_params(i), x, ctx,
                                caches[i], "decode_paged")

@@ -1,7 +1,7 @@
 """Top-k MoE FFN (Mixtral-style) with sort-based, capacity-bounded dispatch.
 
 Counterpart of ``src/repro/models/moe.py`` (``init_moe_params``,
-``moe_ffn``, ``router_aux_loss``).  Tokens are routed with a stable sort over their expert
+``moe_ffn``, ``moe_ffn_sharded``, ``router_aux_loss``).  Tokens are routed with a stable sort over their expert
 assignments plus scatter and gather, not a (T, E, C) one-hot dispatch
 product.  Each expert takes at most ``capacity`` token slots, ranked in
 row-major ``(token, choice)`` order across the whole batch; a slot over
@@ -10,8 +10,11 @@ row's output depends on its batch-mates, as in the reference.
 
 Ties in the router logits go to the lower expert index, as ``lax.top_k``
 and the Pallas gating kernel decide them (``torch.topk`` promises no order
-on ties): :func:`route` sorts stably.  ``moe_ffn_sharded`` comes with the
-distributed slice.
+on ties): :func:`route` sorts stably.
+
+On a mesh the experts' F dim is split over ``model`` (with 8 experts on a
+wide model axis, expert-sharding would pad), so every process runs every
+expert on its F slice and the products are summed over ``model``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import sum_over
 from .config import MoESpec
 from .layers import stacked_dense_init
 
@@ -113,10 +117,18 @@ def moe_ffn(p, x, spec: MoESpec, capacity: Optional[int] = None):
     return combined.reshape(b, s, d)
 
 
-def moe_ffn_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "moe_ffn_sharded is not ported yet: it comes with the distributed "
-        "slice")
+def moe_ffn_sharded(p, x, spec: MoESpec, mesh, dp_axes, model_axis: str):
+    """Data-shard-local MoE dispatch (the reference's ``shard_map`` form).
+
+    Each data shard dispatches its OWN tokens (``x``, this process's rows)
+    into a local (E, C_local, D) buffer, C_local the capacity of the local
+    token count (per-shard capacity, as production routers use), through
+    its F slice of the experts (``p``'s ``w_gate`` / ``w_up`` (E, D, F/m),
+    ``w_down`` (E, F/m, D)); only the F contraction is summed over
+    ``model_axis``.  ``dp_axes`` are the axes the rows are split over (the
+    dispatch needs nothing of them)."""
+    del dp_axes
+    return sum_over(moe_ffn(p, x, spec), mesh, model_axis)
 
 
 def router_aux_loss(p, x, spec: MoESpec) -> torch.Tensor:

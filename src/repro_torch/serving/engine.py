@@ -5,13 +5,25 @@ rank-window / yes-no), all funneled through ONE probe pathway
 costs a single padded prefill submission (``stats.calls`` counts
 submissions).
 
-Counterpart of ``src/repro/serving/engine.py``, single device.  The engine
-takes an ``LM`` that owns its parameters (the reference passes ``params``
-beside it) and runs eagerly under ``torch.inference_mode()``; there are no
-compiled programs, and the arena is updated in place where the reference
-donates it through a jitted step.  Left for the distributed slice: the
-``mesh=`` / ``plan=`` / ``dp_probe_slices=`` arguments (passing a mesh raises
-``NotImplementedError``), ``_put_rows`` and the ``dp_*`` counters.  Archs
+Counterpart of ``src/repro/serving/engine.py``.  The engine takes an ``LM``
+that owns its parameters (the reference passes ``params`` beside it) and runs
+eagerly under ``torch.inference_mode()``; there are no compiled programs, and
+the arena is updated in place where the reference donates it through a jitted
+step.
+
+``mesh=`` (a ``("data", "model")`` DeviceMesh, one process per device, every
+process running the same engine calls) serves the same work SPMD: this
+process holds its slice of the parameters (``LM.sharded``, with ``plan``'s
+``fsdp``) and of the arena (kv-heads over ``model``), probe and decode
+submissions are cut into contiguous per-data-shard row slices (``_put_rows``;
+``dp_probe_slices=False`` keeps every row on every process), the model runs
+tensor-parallel over ``model`` under ``distributed.context.shard_context``,
+and logits and every row's new K/V are gathered back over the data axes, so
+the host-side scheduling, allocator and prefix LRU make the same decisions on
+every process and the arena stays replicated over the data axes.  With a
+model axis of 1 results are bitwise the single-device engine's; above 1 the
+row-parallel sums reorder additions (``TP_PSUM_RTOL`` / ``TP_PSUM_ATOL``).
+Archs
 whose input is not plain tokens get their batches as the reference's stub
 frontends make them: ``embeds`` archs the prompt bytes through the text
 embedding table, encoder-decoder archs that as the encoder's input beside the
@@ -54,6 +66,7 @@ and asserts.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -64,7 +77,10 @@ import torch
 
 from ..data.tokenizer import EOS, PAD, ByteTokenizer
 from ..device import resolve_device
-from ..models.layers import KVCache
+from ..distributed.context import gather_over, shard_context
+from ..distributed.sharding import (ShardingPlan, axes_coord, axes_size,
+                                    data_axes, rows_spec)
+from ..models.layers import KVCache, paged_write_index
 from ..models.model import LM
 from .kv_pool import KVBlockPool, PoolExhausted
 from .locality import plan_window_jobs
@@ -83,6 +99,15 @@ TOK_YES, TOK_NO = ord("Y"), ord("N")
 # 1e-6.  The values are the reference's.
 PAGED_KERNEL_RTOL = 5e-2
 PAGED_KERNEL_ATOL = 1.2e-1
+
+# Tensor-parallel serving (mesh with model axis > 1): the row-parallel
+# contractions (wo, w_down) become sums over the model group whose order
+# differs from the single-device product, so probe logits drift by about one
+# bf16 ulp through the residual stream.  Greedy argmax agreement holds;
+# data-parallel-only meshes (model == 1) never reduce across processes and
+# keep bitwise identity.  The values are the reference's.
+TP_PSUM_RTOL = 5e-2
+TP_PSUM_ATOL = 1.2e-1
 
 # a probe prompt: plain string, or a (shared_prefix, per_key_suffix) pair
 # (the full prompt is the concatenation; the pair form additionally enables
@@ -135,6 +160,11 @@ class ServeStats:
     probe_rounds_deferred: int = 0
     starved_rounds: int = 0
     starved_admissions: int = 0
+    # data-parallel probe slicing (mesh serving): submissions whose rows
+    # were cut into per-data-shard slices, vs submissions that stayed
+    # replicated (fewer rows than shards, or dp_probe_slices=False)
+    dp_sharded_submissions: int = 0
+    dp_replicated_submissions: int = 0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -197,16 +227,25 @@ class ServeEngine:
                  prefix_cache_size: int = 64, pool_blocks: int = 768,
                  block_size: int = 16, max_decode_rows: int = 32,
                  paged_kernel: object = False, locality: bool = True,
-                 device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh=, plan=, dp_probe_slices=) is not "
-                "ported yet: it comes with the distributed slice")
-        self.lm = lm
+                 device=None, mesh=None, plan: Optional[ShardingPlan] = None,
+                 dp_probe_slices: bool = True):
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"the model lies on {lm.device} but the engine "
                              f"was asked to run on {self.device}")
+        # Sharded serving: this process's slice of the parameters, and the
+        # data-parallel row split of every submission (see _put_rows)
+        self.mesh = mesh
+        self.plan = plan
+        self._daxes: tuple = ()
+        self.data_shards = 1
+        self.dp_probe_slices = dp_probe_slices
+        self.lm = lm
+        if mesh is not None:
+            self.plan = plan = plan if plan is not None else ShardingPlan()
+            self._daxes = data_axes(mesh)
+            self.data_shards = axes_size(mesh, self._daxes)
+            self.lm = lm.sharded(mesh, plan)
         self.tok = ByteTokenizer()
         assert lm.cfg.vocab_size >= self.tok.vocab_size, (
             f"model vocab {lm.cfg.vocab_size} < tokenizer vocab "
@@ -236,7 +275,8 @@ class ServeEngine:
         self.block_size = block_size
         self.paged_enabled = pool_blocks > 0 and self._supports_prefix_cache()
         self.pool: Optional[KVBlockPool] = (
-            KVBlockPool(lm, pool_blocks, block_size, device=self.device)
+            KVBlockPool(lm, pool_blocks, block_size, device=self.device,
+                        mesh=mesh, plan=self.plan)
             if self.paged_enabled else None)
         self._paged_rows: dict[int, _PagedRow] = {}
         self._paged_finished: dict[int, str] = {}
@@ -249,6 +289,13 @@ class ServeEngine:
         #   "check" - run BOTH each step, assert allclose, keep the dense
         #             result (deployment validation mode).
         self.paged_kernel = paged_kernel
+        if paged_kernel and mesh is not None:
+            # the kernel attends one process's rows through block tables
+            # whose K/V every data shard must also write; a sharded engine
+            # decodes through the dense paged path, as the reference's does
+            raise ValueError(
+                "paged_kernel is not supported on a sharded engine "
+                "(mesh=...): use the dense paged path")
         if paged_kernel and not self.paged_enabled:
             # an inert validation/deployment switch is worse than an error:
             # the operator would believe the kernel was validated when it
@@ -269,8 +316,19 @@ class ServeEngine:
         return self.lm.prefill(batch, reserve=0)
 
     def _decode_paged(self, toks, pos, tables, impl: str):
-        return self.lm.decode_step_paged(self.pool.arenas, toks, pos, tables,
-                                         block_size=self.block_size, impl=impl)
+        """One decode step over every active row (padded).  On a mesh each
+        process decodes its row slice, writes every row's K/V (the step's
+        whole write index) and gets every row's logits back."""
+        split = self._split_rows(toks.shape[0])
+        windex = None
+        if split:
+            windex = paged_write_index(tables, pos, self.block_size)
+            toks, pos, tables = (self._cut(t, split) for t in (toks, pos, tables))
+        with self._sharded(split):
+            logits, arenas = self.lm.decode_step_paged(
+                self.pool.arenas, toks, pos, tables, block_size=self.block_size,
+                impl=impl, write_index=windex)
+        return self._gather(logits, split), arenas
 
     def _supports_prefix_cache(self) -> bool:
         # every layer's output for a row must be a pure function of that row
@@ -305,9 +363,76 @@ class ServeEngine:
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
-    def _make_batch(self, tokens: np.ndarray) -> dict:
+    # ------------------------------------------------ data-parallel rows
+    def _split_rows(self, n_rows: int, count: bool = False) -> bool:
+        """Is a submission of ``n_rows`` padded rows cut into contiguous
+        per-data-shard slices?  Row counts are bucketed to powers of two, so
+        any submission at or above the shard count divides; smaller ones,
+        and every one under ``dp_probe_slices=False``, stay replicated.
+        Identity argument: a row's logits depend only on its own padded
+        sequence, so slicing the row dim never changes bits."""
+        if self.mesh is None:
+            return False
+        split = (self.dp_probe_slices
+                 and rows_spec(n_rows, 1, self.mesh)[0] is not None)
+        if count:
+            if split:
+                self.stats.dp_sharded_submissions += 1
+            else:
+                self.stats.dp_replicated_submissions += 1
+        return split
+
+    def _cut(self, t: torch.Tensor, split: bool, axis: int = 0):
+        """This process's contiguous slice of ``t``'s row dim."""
+        if not split:
+            return t
+        size = t.shape[axis] // self.data_shards
+        return t.narrow(axis, axes_coord(self.mesh, self._daxes) * size, size)
+
+    def _gather(self, t: torch.Tensor, split: bool, axis: int = 0):
+        """Every row of a split submission, from each process's slice."""
+        return gather_over(t, self.mesh, self._daxes, axis) if split else t
+
+    def _run(self, fn, tokens: np.ndarray, caches=None,
+             whole_caches: bool = False):
+        """One submission: ``fn(batch)``, or ``fn(caches, batch)`` with
+        ``caches`` cut to the batch's rows (a batch-1 cache broadcasts), under
+        the model's shard context.  Returns (every row's logits, the caches
+        ``fn`` made: every row's with ``whole_caches``, else this process's,
+        whether the rows were cut).  Stacked KVCache leaves carry rows
+        second; pos leaves have none."""
+        toks, split = self._put_rows(tokens, count=True)
+        batch = self._make_batch(toks)
+        with self._sharded(split):
+            if caches is None:
+                logits, out = fn(batch)
+            else:
+                logits, out = fn(_map_caches(
+                    lambda l: (l if l.dim() == 2 or l.shape[1] == 1
+                               else self._cut(l, split, 1)), caches), batch)
+        if whole_caches:
+            out = _map_caches(
+                lambda l: l if l.dim() == 2 else self._gather(l, split, 1), out)
+        return self._gather(logits, split), out, split
+
+    def _sharded(self, split: bool):
+        """The model's shard context for one submission: its data axes only
+        when the rows are split."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shard_context(self.mesh, self._daxes if split else ())
+
+    def _put_rows(self, arr: np.ndarray, axis: int = 0, count: bool = False):
+        """Data-parallel row split: (this process's rows of ``arr`` on the
+        device, whether they were cut)."""
+        split = self._split_rows(arr.shape[axis], count)
+        return self._cut(self._put(arr), split, axis), split
+
+    def _make_batch(self, tokens) -> dict:
+        """The model's batch dict for ``tokens`` (a host array, or rows
+        already on the device)."""
         cfg = self.lm.cfg
-        toks = self._put(tokens)
+        toks = tokens if isinstance(tokens, torch.Tensor) else self._put(tokens)
         if cfg.input_mode == "embeds":
             # VLM stub frontend: embed text bytes through the text table
             return {"embeds": self.lm.embed[toks.long()]}
@@ -426,7 +551,7 @@ class ServeEngine:
                 lease = self._lease_probe_blocks(len(g), cls)
                 try:
                     tokens = self._pad_ids([enc[i] for i in g], maxlen=cls)
-                    logits, _ = self._prefill(self._make_batch(tokens))
+                    logits, _, _ = self._run(self._prefill, tokens)
                     self.stats.prefill_tokens += int(tokens.size)
                     self.stats.calls += 1
                     self.stats.probe_rows += len(g)
@@ -556,7 +681,9 @@ class ServeEngine:
                 arr = np.full((rows_p, region_len), PAD, np.int32)
                 for r, (pids, pad) in enumerate(batch):
                     arr[r, pad:] = pids
-                _, caches = self._prefill_exact(self._make_batch(arr))
+                # every process stores every row's region KV
+                _, caches, _ = self._run(self._prefill_exact, arr,
+                                         whole_caches=True)
                 self.stats.prefill_tokens += int(arr.size)
                 self.stats.prefix_tokens_saved -= int(arr.size)
                 row_blocks = self._pool_rows(len(batch), region_len)
@@ -644,7 +771,8 @@ class ServeEngine:
 
         assembled = [KVCache(*(cat(*leaves) for leaves in zip(*per_stack)))
                      for per_stack in zip(*uniq)]
-        logits, _ = self.lm.prefill_cont(assembled, self._make_batch(arr))
+        # the per-row cache gather rides the token batch's row split
+        logits, _, _ = self._run(self.lm.prefill_cont, arr, assembled)
         self.stats.prefill_tokens += int(arr.size)
         self.stats.calls += 1
         self.stats.probe_rows += rows
@@ -766,7 +894,8 @@ class ServeEngine:
             limits = np.minimum(np.asarray(max_new_per, np.int64), self.max_new)
         limits = np.concatenate([limits, np.zeros((b - n,), np.int64)])
         horizon = int(limits.max(initial=0))
-        logits, caches = self._prefill(self._make_batch(tokens))
+        # caches: this process's rows, decoded here step by step
+        logits, caches, split = self._run(self._prefill, tokens)
         self.stats.prefill_tokens += int(tokens.size)
         self.stats.calls += 1
         out = np.full((b, horizon), EOS, np.int64)  # unwritten tail decodes empty
@@ -779,7 +908,10 @@ class ServeEngine:
             done |= (t + 1) >= limits
             if done.all():
                 break
-            logits, caches = self.lm.decode_step(caches, cur, s + t)
+            with self._sharded(split):
+                logits, caches = self.lm.decode_step(
+                    caches, self._cut(cur, split), s + t)
+            logits = self._gather(logits, split)
             self.stats.decode_tokens += int((~done).sum())
             self.stats.decode_row_steps += b
             cur = logits.argmax(dim=-1)[:, None]
@@ -921,7 +1053,8 @@ class ServeEngine:
     def _admit_plain(self, cls: int, group: list) -> None:
         """Monolithic prefill of same-class rows into their block runs."""
         tokens = self._pad_ids([enc for _, enc, *_ in group], maxlen=cls)
-        logits, caches = self._prefill_exact(self._make_batch(tokens))
+        logits, caches, _ = self._run(self._prefill_exact, tokens,
+                                      whole_caches=True)
         self.stats.prefill_tokens += int(tokens.size)
         self.stats.calls += 1
         row_blocks = self._alloc_rows(
@@ -977,8 +1110,8 @@ class ServeEngine:
         assembled = _map_caches(
             lambda l: l[:, :start] if l.dim() == 2 else l[:, :, :start],
             self._entry_caches(entry))
-        logits, caches = self.lm.prefill_cont(assembled,
-                                              self._make_batch(arr))
+        logits, caches, _ = self._run(self.lm.prefill_cont, arr, assembled,
+                                      whole_caches=True)
         self.stats.prefill_tokens += int(arr.size)
         self.stats.calls += 1
         self.stats.prefix_tokens_saved += rows_p * cls - int(arr.size)

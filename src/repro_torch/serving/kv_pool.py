@@ -6,8 +6,16 @@ differs in one way: the arena is one tensor per decoder stack, updated IN
 PLACE (``index_copy_`` here, ``index_put_`` in the decode step), where the
 reference builds a new array with ``.at[].set`` and relies on buffer
 donation.  ``self.arenas`` therefore keeps its identity for the pool's
-lifetime.  Left for the distributed slice: the ``mesh=`` / ``plan=``
-arguments and ``_pin``.
+lifetime.
+
+On a serving mesh (``mesh=`` / ``plan=``) each process holds its slice of the
+arenas under ``distributed.sharding.arena_specs``: kv-heads over ``model``,
+every other dim, the block dim above all, replicated over the data axes.  So
+the free list, refcounts, leases and stashes below stay host-side and
+mesh-oblivious: a block id addresses the same arena slice on every process,
+and every process runs the same allocator decisions.  Keeping the block dim
+replicated is the engine's job (it gathers row-split K/V over the data axes
+before every write).
 
 A fixed arena of per-layer KV blocks (one :class:`~..models.layers.PagedKV`
 per decoder stack, leaves (n_layers, num_blocks, block_size, KV, hd)) with a
@@ -39,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed.sharding import ShardingPlan, arena_specs, local_shape
 from ..models.layers import KVCache, PagedKV, dtype_of
 
 
@@ -49,7 +58,7 @@ class PoolExhausted(RuntimeError):
 
 class KVBlockPool:
     def __init__(self, lm, num_blocks: int, block_size: int = 16,
-                 device=None):
+                 device=None, mesh=None, plan=None):
         """``device=None`` means CUDA and raises without it."""
         cfg = lm.cfg
         assert num_blocks >= 2, "need at least one real block beyond dummy 0"
@@ -61,12 +70,14 @@ class KVBlockPool:
         dt = dtype_of(cfg.dtype)
         kv, hd = cfg.n_kv_heads, cfg.hd
 
-        def zeros(n):
-            return torch.zeros((n, num_blocks, block_size, kv, hd), dtype=dt,
-                               device=self.device)
-
-        self.arenas = [PagedKV(k=zeros(n), v=zeros(n))
-                       for kind, n in cfg.pattern]
+        shapes = [(n, num_blocks, block_size, kv, hd) for _kind, n in cfg.pattern]
+        if mesh is not None:              # this process's slice: KV over model
+            specs = arena_specs([torch.empty(s, device="meta") for s in shapes],
+                                mesh, plan or ShardingPlan())
+            shapes = [local_shape(s, sp, mesh) for s, sp in zip(shapes, specs)]
+        self.arenas = [PagedKV(k=torch.zeros(s, dtype=dt, device=self.device),
+                               v=torch.zeros(s, dtype=dt, device=self.device))
+                       for s in shapes]
         # LIFO free list, block 0 (dummy) excluded for good
         self._free = list(range(num_blocks - 1, 0, -1))
         self._ref = np.zeros(num_blocks, np.int64)
@@ -82,6 +93,14 @@ class KVBlockPool:
         # blocks copied out to host stashes and scattered back
         self.total_stashed = 0
         self.total_unstashed = 0
+
+    def _pin(self, si: int, arena):
+        """The reference re-commits an eagerly updated arena to its
+        canonical sharding.  The port's arenas are updated in place and keep
+        their layout, so this checks that stack ``si``'s arena is still the
+        pool's own and returns it."""
+        assert arena is self.arenas[si], f"stack {si}: not the pool's arena"
+        return arena
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(list(ids), np.int64),
@@ -164,9 +183,10 @@ class KVBlockPool:
         assert stash and all(k.shape[1] == len(ids) for k, _ in stash), (
             "stash block count must match the destination run")
         idx = self._ids(ids)
-        for arena, (k, v) in zip(self.arenas, stash):
+        for si, (arena, (k, v)) in enumerate(zip(self.arenas, stash)):
             arena.k.index_copy_(1, idx, k.to(self.device))
             arena.v.index_copy_(1, idx, v.to(self.device))
+            self._pin(si, arena)
         self.total_unstashed += len(ids)
 
     # ------------------------------------------------------ device arenas
@@ -188,7 +208,7 @@ class KVBlockPool:
             "rows of one write must cover equal block counts")
         ids = self._ids(i for b in row_blocks for i in b)
         rows = len(row_blocks)
-        for arena, cache in zip(self.arenas, stack_caches):
+        for si, (arena, cache) in enumerate(zip(self.arenas, stack_caches)):
             n, _, s = cache.k.shape[:3]
             span = s - start
             pad = nb * bs - span
@@ -202,6 +222,7 @@ class KVBlockPool:
 
             arena.k.index_copy_(1, ids, to_blocks(cache.k))
             arena.v.index_copy_(1, ids, to_blocks(cache.v))
+            self._pin(si, arena)
 
     def gather_stacked(self, block_ids: Sequence[int], length: int):
         """Materialize a block run as the dense per-stack cache list the

@@ -8,13 +8,15 @@ kept in an fp32 error state and added back the next step (Karimireddy et al.
 fp32.  :func:`compress_in_place` is the same arithmetic leaf by leaf with the
 error state updated in place and each gradient replaced as it goes, which
 the ``Trainer`` uses: at minicpm-2b's size a second error state or a second
-set of fp32 gradients would be 11 GB each.  ``ef_allreduce`` takes a mesh
-and comes with the distributed slice.
+set of fp32 gradients would be 11 GB each.  :func:`ef_allreduce` is the
+explicit compressed all-reduce of one leaf over a mesh's data axes.
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed.context import sum_over
+from ..distributed.sharding import axes_size
 from .tree import leaves, map_tree, unflatten
 
 f32 = torch.float32
@@ -72,7 +74,20 @@ def compress_in_place(grads: list, errs: list) -> None:
         del g
 
 
-def ef_allreduce(*args, **kwargs):
-    raise NotImplementedError(
-        "compression.ef_allreduce is not ported yet: it takes a mesh and comes "
-        "with the distributed slice")
+@torch.no_grad()
+def ef_allreduce(mesh, axis_names, x_q, scale):
+    """Explicit compressed all-reduce of one leaf over ``axis_names`` of
+    ``mesh`` (every process passes its own int8 ``x_q`` and fp32
+    ``scale``, a 0-dim or per-element tensor): the payload widened to
+    int32 and summed, the scales' maximum taken, then ``acc * s_max / n``
+    with ``n`` the number of processes summed over.  The wire format is int8
+    (the int32 widening models the accumulator); on a 1-wide axis this is
+    exactly ``x_q * scale``."""
+    axes = tuple(axis_names)
+    n = axes_size(mesh, axes)
+    acc = sum_over(x_q.to(torch.int32), mesh, axes)
+    s_max = scale.to(f32).clone()
+    for a in axes:
+        torch.distributed.all_reduce(s_max, op=torch.distributed.ReduceOp.MAX,
+                                     group=mesh.get_group(a))
+    return acc.to(f32) * s_max / n

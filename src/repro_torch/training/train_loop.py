@@ -7,8 +7,10 @@ reference jit-compiles its step and donates the state; here the step runs
 eagerly and updates the state in place: ``state["params"]`` is
 ``lm.param_tree()``, the model's own parameters, so the trained ``LM`` can
 be handed to ``ServeEngine`` as it is.  Gradients come from
-``torch.autograd.grad`` (no ``.grad`` is left on the parameters).  Sharded
-state and a mesh come with the distributed slice.
+``torch.autograd.grad`` (no ``.grad`` is left on the parameters).  The
+reference's sharded state (``state_shardings`` / ``batch_sharding``) waits
+for a later slice; ``distributed.sharding`` already holds the rules it
+would follow (``param_specs``, ``zero1_specs``, ``batch_specs``).
 """
 from __future__ import annotations
 

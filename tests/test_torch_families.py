@@ -188,14 +188,22 @@ def test_moe_route_breaks_ties_to_the_lower_expert():
 
 def test_unported_moe_paths_raise_by_name():
     # router_aux_loss came with the training slice (held against the
-    # reference in test_torch_training.py); the sharded FFN still raises
+    # reference in test_torch_training.py) and the sharded FFN with the
+    # distributed slice (tests/test_torch_distributed.py): on a 1x1 mesh it
+    # is the global dispatch.  What is left raises by name: tensor
+    # parallelism over a kind other than attn / moe / moe_swa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import check_tensor_parallel
     cfg = get_reduced("mixtral-8x7b")
     p = TB.init_block(torch.Generator().manual_seed(0), "moe", cfg, "cpu")["moe"]
-    aux = TMOE.router_aux_loss(p, torch.ones((1, 4, cfg.d_model), dtype=p["router"].dtype),
-                               cfg.moe)
+    x = torch.ones((1, 4, cfg.d_model), dtype=p["router"].dtype)
+    aux = TMOE.router_aux_loss(p, x, cfg.moe)
     assert aux.dim() == 0 and torch.isfinite(aux)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        TMOE.moe_ffn_sharded()
+    mesh = make_local_mesh(1, 1, device="cpu")
+    assert torch.equal(TMOE.moe_ffn_sharded(p, x, cfg.moe, mesh, ("data",), "model"),
+                       TMOE.moe_ffn(p, x, cfg.moe))
+    with pytest.raises(NotImplementedError, match="hymba.*later slice"):
+        check_tensor_parallel(get_reduced("hymba-1.5b"), 2)
 
 
 @torch.inference_mode()

@@ -147,5 +147,9 @@ def test_launcher_prints_the_reference_order(monkeypatch, capsys):
     # sharding counters: the arch, path, calls and cost line, the optimizer's
     # choice, and the order
     assert got[:-2] == want[:-2] and len(got) == len(want) == 8
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        serve.main(["--device", "cpu", "--mesh", "1x1"])
+    # sharded serving on a 1x1 mesh prints the same lines; --fsdp needs a mesh
+    serve.main(["--device", "cpu", "--mesh", "1x1", *argv])
+    meshed = capsys.readouterr().out.splitlines()
+    assert meshed[:-2] == got[:-2] and "mesh=1x1" in meshed[-1]
+    with pytest.raises(SystemExit, match="--fsdp requires --mesh"):
+        serve.main(["--device", "cpu", "--fsdp"])

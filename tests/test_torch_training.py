@@ -177,8 +177,12 @@ def test_compressed_grads_against_reference():
     tcomp.compress_in_place(glist, elist)
     for a, b in zip(glist + elist, jax.tree.leaves(jdeq) + jax.tree.leaves(jerr2)):
         np.testing.assert_array_equal(f32(a), f32(b))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tcomp.ef_allreduce(None, ("data",), None, None)
+    # the explicit all-reduce over a 1-wide data axis is the dequantisation
+    # (tests/test_torch_distributed.py holds it to the reference)
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, 1, device="cpu")
+    for q, s in zip(leaves(qs), leaves(scales)):
+        assert torch.equal(tcomp.ef_allreduce(mesh, ("data",), q, s), q.float() * s)
 
 
 def test_router_aux_loss_against_reference():

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases train,kernels    # train minicpm-2b, resume, serve it
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
     python3 chip_smoke.py --phases mesh             # the 1x1 mesh: sharded == unsharded
+    python3 chip_smoke.py --phases launch           # dry-run grid, roofline vs card, pricing
 
 Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
 (one ``nvcc`` per source, all started together), then:
@@ -58,6 +59,19 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   of a 2^20-element leaf.  The sharded engine decodes through the dense
   paged path (the reference refuses the paged kernel on a mesh), so this
   path launches no kernel;
+- ``launch``: the launch-tooling slice.  ``launch.dryrun`` over every arch x
+  shape on the production mesh (32x8) and llama3-8b's shapes on the
+  multi-pod one (2x32x8), on ``meta``: the error records must be exactly the
+  cells ``check_tensor_parallel`` refuses at a model axis of 8, every other
+  cell fully counted; the report's tables.  Then ``stablelm-1.6b`` at full
+  size with phase ``order_by``'s weights on a 1x1 NCCL mesh: a price sheet
+  from the grid's records (an assumed $/card-hour) drives a judged ``auto``
+  query through ``ServeEngine(paged_kernel=True)``, whose cost must be its
+  oracle's spend; three card-sized cells (decode, prefill, train) counted at
+  1x1 and timed on the card, none faster than its bound, argument bytes
+  equal; and ``Trainer(mesh=, plan=)`` on minicpm-2b at full width (2 of 40
+  layers), zero1, fsdp and two microbatches with int8 error feedback,
+  bitwise the unsharded trainer's, checkpoint files byte-equal;
 - ``main``, ``llama`` (the serving path of the first slice), and ``profile``
   (not in the default run).
 
@@ -88,7 +102,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import get_config, get_reduced, list_archs  # noqa: E402
 from repro_torch.core import OrderQuery, as_keys, llm_order_by, llm_order_by_many  # noqa: E402
 from repro_torch.core.access_paths import pointwise as pointwise_mod  # noqa: E402
 from repro_torch.core.optimizer import optimizer as optimizer_mod  # noqa: E402
@@ -106,7 +120,14 @@ from repro_torch.kernels import moe_gating as mg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import topk_scores as tk  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import pricing as pricing_mod  # noqa: E402
+from repro_torch.launch import report as report_mod  # noqa: E402
+from repro_torch.launch.mesh import (PEAK_FLOPS, AbstractMesh, make_local_mesh,  # noqa: E402
+                                    make_production_mesh)
+from repro_torch.launch.specs import cell_applicable  # noqa: E402
+from repro_torch.models.config import SHAPES, InputShape  # noqa: E402
+from repro_torch.models.model import check_tensor_parallel  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -120,9 +141,6 @@ from repro_torch.training.compression import compress_leaf, ef_allreduce  # noqa
 from repro_torch.training.fault_tolerance import SimulatedFailure  # noqa: E402
 from repro_torch.training.tree import flatten_with_path, leaves, path_str  # noqa: E402
 
-# H100 SXM data sheet, operations per second by input type: the rate a kernel
-# could reach at best (tensor cores for bf16), whatever units ours uses
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # flash and decode attention: the reference's own tolerances (tests/test_kernels.py)
@@ -2153,6 +2171,261 @@ def phase_mesh(device, card, seed) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- launch tooling
+LAUNCH_ARCH = "stablelm-1.6b"
+# card-sized cells for the roofline against the card (not in SHAPES: the
+# production cells' batches are whole meshes')
+CARD_SHAPES = (InputShape("card_decode", 4096, 32, "decode"),
+               InputShape("card_prefill", 4096, 4, "prefill"),
+               InputShape("card_train", 512, 4, "train"))
+CARD_STEPS = 5
+# the repo holds no H100 price with a source: an assumed on-demand figure,
+# printed as such beside the price sheet it gives
+ASSUMED_USD_PER_CARD_HOUR = 2.99
+# minicpm-2b at full width, its depth cut from 40 to 2 layers so that two
+# trainers (and their checkpoints) fit in turn within the phase's time
+SHARDED_TRAIN = dict(arch="minicpm-2b", depth=2, batch=4, seq=256, steps=2)
+SHARDED_PLANS = (("zero1", ShardingPlan(), 1, False),
+                 ("fsdp", ShardingPlan(fsdp=True), 1, False),
+                 ("zero1_accum2_int8", ShardingPlan(), 2, True))
+LAUNCH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+
+
+def refused_at(cfg, model: int) -> bool:
+    try:
+        check_tensor_parallel(cfg, model)
+    except (NotImplementedError, ValueError):
+        return True
+    return False
+
+
+def launch_grid(card) -> list:
+    """``dryrun_cell`` over every arch x shape on the single-pod production
+    mesh and llama3-8b's shapes on the multi-pod one.  The error records must
+    be exactly the applicable cells of the archs ``check_tensor_parallel``
+    refuses at a model axis of 8; every other applicable cell must carry
+    memory, FLOP, byte, collective and roofline entries."""
+    os.makedirs(LAUNCH_OUT, exist_ok=True)
+    out = os.path.join(LAUNCH_OUT, "launch_dryrun.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    recs, _ = dryrun_mod.dryrun_records(list_archs(), list(SHAPES), [False], out=out,
+                                        verbose=False)
+    multi, _ = dryrun_mod.dryrun_records(["llama3-8b"], list(SHAPES), [True], out=out,
+                                         verbose=False)
+    wall = time.perf_counter() - t0
+    recs += multi
+    model = make_production_mesh().shape["model"]
+    want = {(r["arch"], r["shape"], r["multi_pod"]) for r in recs
+            if cell_applicable(get_config(r["arch"]), r["shape"])[0]
+            and refused_at(get_config(r["arch"]), model)}
+    got = {(r["arch"], r["shape"], r["multi_pod"]) for r in recs if "error" in r}
+    assert got == want, (sorted(got ^ want), [r["error"] for r in recs if "error" in r])
+    counted = [r for r in recs if "error" not in r and "skipped" not in r]
+    for r in counted:
+        ma, ca, rf = r["memory_analysis"], r["cost_analysis"], r["roofline"]
+        assert min(ma["argument_size_in_bytes"], ma["output_size_in_bytes"],
+                   ma["temp_size_in_bytes"]) > 0, r
+        assert ca["flops"] > 0 and ca["bytes accessed"] > 0, r
+        assert r["collectives"]["total_bytes"] > 0 and rf["step_time_bound_s"] > 0, r
+    print(report_mod.dryrun_table(recs), flush=True)
+    print(report_mod.roofline_table(recs), flush=True)
+    say("launch.grid", card=card, cells=len(recs), counted=len(counted), errors=len(got),
+        skipped=sum("skipped" in r for r in recs), wall_seconds=wall,
+        count_seconds=sum(r.get("count_s", 0.0) for r in counted),
+        refused_archs=sorted({a for a, _, _ in got}), records="chiprun_out/launch_dryrun.jsonl",
+        errors_are_the_refused_cells=True)
+    return recs
+
+
+def card_cell(kind, lm, mesh, shape, device, seed):
+    """The arguments of one step of ``kind`` on the card, and the step."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, lm.cfg.vocab_size, (
+        shape.global_batch, 1 if kind == "decode" else shape.seq_len)).astype(np.int32)).to(device)
+    if kind == "train":
+        trainer = Trainer(lm, TrainConfig(log_every=0), mesh=mesh)
+        state = trainer.init_state()
+        batch = {"tokens": tokens}
+        return [state, batch], lambda: trainer.step(state, batch)
+    local = lm.sharded(mesh)
+    if kind == "prefill":
+        batch = {"tokens": tokens}
+
+        def prefill():
+            with shard_context(mesh, ()), torch.no_grad():
+                return local.prefill(batch)
+        return [local.param_tree(), batch], prefill
+    caches = local.init_caches(shape.global_batch, shape.seq_len)
+
+    def decode():
+        with shard_context(mesh, ()), torch.no_grad():
+            return local.decode_step(caches, tokens, shape.seq_len - 1)
+    return [local.param_tree(), caches, tokens], decode
+
+
+def launch_roofline(lm, mesh, device, card, seed) -> list:
+    """Each card-sized cell: the dry-run's record at 1x1 against the median
+    of ``CARD_STEPS`` real steps (CUDA events).  The step may not beat its
+    bound, and the dry-run's argument bytes are the card's."""
+    one = AbstractMesh(("data", "model"), (1, 1))
+    out = []
+    for shape in CARD_SHAPES:
+        kind = shape.kind
+        rec = dryrun_mod.dryrun_cell(LAUNCH_ARCH, shape.name, mesh=one, shape=shape,
+                                     verbose=False)
+        args, step = card_cell(kind, lm, mesh, shape, device, seed)
+        arg_bytes = dryrun_mod.storage_bytes(leaves(args))
+        step()                                        # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(CARD_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = step()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+            del res
+        step_peak = torch.cuda.max_memory_allocated() - base
+        rf, ma = rec["roofline"], rec["memory_analysis"]
+        t = statistics.median(times)
+        assert t >= rf["step_time_bound_s"], (kind, t, rf)
+        assert ma["argument_size_in_bytes"] == arg_bytes, (kind, ma, arg_bytes)
+        say("launch.roofline", card=card, arch=LAUNCH_ARCH, kind=kind,
+            batch=shape.global_batch, seq=shape.seq_len, bound_s=rf["step_time_bound_s"],
+            dominant=rf["dominant"], compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+            step_seconds_median=t, step_seconds=times,
+            bound_over_time=rf["step_time_bound_s"] / t,
+            dryrun_flops=rec["cost_analysis"]["flops"],
+            dryrun_bytes=rec["cost_analysis"]["bytes accessed"],
+            argument_bytes=arg_bytes, argument_bytes_equal=True,
+            dryrun_temp_bytes=ma["temp_size_in_bytes"],
+            card_peak_less_resident_bytes=step_peak)
+        out.append(rec)
+        del args, step
+        release()
+    return out
+
+
+def launch_pricing(lm, recs, card) -> dict:
+    """The self-hosted price sheet from the grid's stablelm-1.6b prefill_32k
+    and decode_32k records, driving a judged ``auto`` query through the
+    paged kernel; its report's cost must be the oracle's spend."""
+    sheet = pricing_mod.price_sheet_from_records(
+        recs, LAUNCH_ARCH, chip_hour_usd=ASSUMED_USD_PER_CARD_HOUR)
+    eng = ServeEngine(lm, paged_kernel=True, max_new_tokens=16)
+    qd = QUERIES[0]
+    oracle = ModelOracle(eng, prices=sheet, judge_rationale_tokens=qd["rationale"])
+    reset_launches()                           # ---- the launch path starts here
+    t0 = time.perf_counter()
+    res, rep = llm_order_by(as_keys(PASSAGES), QUERY, oracle, **query_kw(qd))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()                 # ---- and ends here
+    spend = oracle.spend()
+    assert math.isclose(rep.total_cost, spend, rel_tol=1e-6), (rep.total_cost, spend)
+    assert launches["paged_attention"] > 0, launches
+    assert len(res.order) == 5 and len(set(res.uids())) == 5, res.uids()
+    assert_no_leak(eng)
+    say("launch.pricing", card=card, arch=LAUNCH_ARCH, sheet=sheet.name,
+        usd_per_card_hour=ASSUMED_USD_PER_CARD_HOUR,
+        usd_per_card_hour_is="assumed: the repo holds no H100 price with a source",
+        input_per_mtok=sheet.input_per_mtok, output_per_mtok=sheet.output_per_mtok,
+        path=qd["path"], chosen=rep.chosen.label, total_cost=rep.total_cost, spend=spend,
+        n_calls=res.n_calls, order=res.uids(), wall_seconds=wall, launches=launches,
+        leaked_blocks=0)
+    del eng
+    return launches
+
+
+def same_files(a, b) -> bool:
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def launch_sharded_training(mesh, device, card, seed) -> None:
+    """minicpm-2b at full width, 2 layers: the sharded ``Trainer`` on the
+    1x1 mesh against the unsharded one, each plan two steps from the same
+    seeded weights and batches; losses, gradient norms and every state entry
+    bitwise, and the first plan's checkpoint files byte-equal."""
+    st = SHARDED_TRAIN
+    full = get_config(st["arch"])
+    cfg = dataclasses.replace(full, n_layers=st["depth"], pattern=(("attn", st["depth"]),))
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=st["seq"],
+                                   global_batch=st["batch"], seed=seed))
+    batches = [pipe.batch(i) for i in range(st["steps"])]
+    tmp = tempfile.mkdtemp(prefix="launch_ckpt_")
+    try:
+        for i, (name, plan, accum, int8) in enumerate(SHARDED_PLANS):
+            t0 = time.perf_counter()
+            runs = []
+            for sharded in (False, True):
+                ckpt_dir = os.path.join(tmp, f"{name}_{int(sharded)}") if i == 0 else None
+                tc = TrainConfig(steps=st["steps"], log_every=0, grad_accum=accum,
+                                 compression=int8, ckpt_dir=ckpt_dir, ckpt_async=False,
+                                 optim=OptimConfig(lr=3e-4, warmup_steps=1, schedule="const"))
+                lm = seeded_lm(cfg, device, seed)
+                trainer = (Trainer(lm, tc, mesh=mesh, plan=plan) if sharded
+                           else Trainer(lm, tc))
+                state = trainer.init_state()
+                hist = trainer.run(state, iter(batches), resume=False)["history"]
+                runs.append(([(r["loss"], r["grad_norm"]) for r in hist],
+                             [t.detach().clone() for t in leaves(state)], ckpt_dir))
+                del trainer, state, lm
+                release()
+            (h0, s0, c0), (h1, s1, c1) = runs
+            assert h1 == h0, (name, h0, h1)
+            assert len(s0) == len(s1) and all(torch.equal(a, b) for a, b in zip(s0, s1)), name
+            files_equal = None
+            if c0 is not None:
+                files_equal = same_files(os.path.join(c0, f"step_{st['steps']}", "host_0"),
+                                         os.path.join(c1, f"step_{st['steps']}", "host_0"))
+                assert files_equal, name
+            say("launch.sharded_train", card=card, arch=cfg.name, layers=st["depth"],
+                layers_of_full=full.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                plan=name, grad_accum=accum, compression=int8, mesh="1x1",
+                backend=torch.distributed.get_backend(), losses=[h[0] for h in h0],
+                grad_norms=[h[1] for h in h0], state_entries_bitwise=True,
+                checkpoint_files_byte_equal=files_equal,
+                wall_seconds=time.perf_counter() - t0)
+            del runs, s0, s1
+            release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_launch(device, card, seed) -> dict:
+    """The launch-tooling slice on one card: the dry-run grid, the roofline
+    of stablelm-1.6b against its real steps on a 1x1 NCCL mesh, the
+    self-priced query through the paged kernel, and the sharded trainer."""
+    import torch.distributed as dist
+    release()
+    t0 = time.perf_counter()
+    recs = launch_grid(card)
+    mesh = make_local_mesh(1, 1, device=device)
+    lm = seeded_lm(get_config(LAUNCH_ARCH), device, seed)    # phase order_by's weights
+    launches = launch_pricing(lm, recs, card)
+    launch_roofline(lm, mesh, device, card, seed)   # its train step moves the weights
+    del lm
+    release()
+    launch_sharded_training(mesh, device, card, seed)
+    say("launch.done", card=card, wall_seconds=time.perf_counter() - t0,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del mesh
+    dist.destroy_process_group()
+    return launches
+
+
 def traced(fn, card, tag, **extra) -> None:
     """Run ``fn`` once untimed (warm-up), once on the host clock, once under
     torch.profiler; report the device's busy time, its idle share of the
@@ -2247,7 +2520,7 @@ def phase_profile(device, card, seed) -> None:
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama,mesh"
+DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama,mesh,launch"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
@@ -2255,7 +2528,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
                     help="comma-separated subset of order_by,families,archs,train,kernels,"
-                         "ops,main,llama,mesh,profile")
+                         "ops,main,llama,mesh,launch,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2293,6 +2566,8 @@ def main(argv=None) -> int:
         phase_llama(device, card, args.seed)
     if "mesh" in phases:
         launches_by_path["mesh"] = phase_mesh(device, card, args.seed)
+    if "launch" in phases:
+        launches_by_path["launch"] = phase_launch(device, card, args.seed)
     if "profile" in phases:
         phase_profile(device, card, args.seed)
     if kernels is not None and {"order_by", "families", "train", "ops"} <= phases:

@@ -22,7 +22,16 @@ identity outside one:
    batch, when the context says its rows are split (its data axes are not
    empty).
 
-:func:`gather_over` / :func:`sum_over` take a mesh and axes explicitly.
+:func:`gather_over` / :func:`sum_over` / :func:`max_over` take a mesh and
+axes explicitly.
+
+Counting mode: on a :class:`CountingMesh` (an abstract mesh seen from the
+rank at coordinate 0 of every axis) no process group exists; each collective
+records ``(kind, axis, result bytes)`` in the mesh's ``records`` and returns a
+result of the right shape without calling ``torch.distributed``.  A backward
+pass's collectives are counted the same way.  The dry-run
+(``launch/dryrun.py``) counts one rank's program so, on ``meta`` tensors,
+for a mesh of any size in one process.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .sharding import P, axes_coord, axes_size, axis_names
+from .sharding import P, axes_coord, axes_size, axis_names, map_tree
 
 _ACT_SPEC: ContextVar[Optional[P]] = ContextVar("act_spec", default=None)
 # (mesh, dp_axes tuple, model axis name): the serving engine's shard context
@@ -108,17 +117,50 @@ def sequence_parallel_spec(batch_axes=("data",), seq_axis: str = "model") -> P:
 
 
 # ------------------------------------------------------------ collectives
+class CountedGroup:
+    """An axis of a :class:`CountingMesh`: its name, its size and the list
+    its collectives are recorded in."""
+
+    def __init__(self, axis: str, size: int, records: list):
+        self.axis, self.size, self.records = axis, size, records
+
+    def record(self, kind: str, result) -> None:
+        self.records.append((kind, self.axis, result.numel() * result.element_size()))
+
+
+class CountingMesh:
+    """The mesh of the rank at coordinate 0 of every axis of ``abstract`` (a
+    ``launch.mesh.AbstractMesh``), for counting its collectives: every
+    collective over it is recorded in :attr:`records`, none is run."""
+
+    def __init__(self, abstract):
+        self.axis_names = tuple(abstract.axis_names)
+        self.shape = dict(abstract.shape)
+        self.records: list = []
+
+    def get_group(self, axis: str) -> CountedGroup:
+        return CountedGroup(axis, self.shape[axis], self.records)
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+
 class _AllReduce(torch.autograd.Function):
     """Sum over a group; the backward sums the gradients the same way, each
     process's loss being one term of a summed objective
     (``torch.distributed.nn.functional.all_reduce``'s definition, which
-    recent PyTorch deprecates)."""
+    recent PyTorch deprecates).  The model processes of a tensor-parallel
+    step share one loss, so that objective is M times it; the sharded
+    ``Trainer`` divides its gradients back."""
 
     @staticmethod
     def forward(ctx, group, x):
         ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        if isinstance(group, CountedGroup):
+            group.record("all-reduce", out)
+        else:
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
@@ -134,6 +176,11 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, dim, x):
         ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        if isinstance(group, CountedGroup):
+            ctx.rank = 0
+            out = torch.cat([x] * group.size, dim=dim)
+            group.record("all-gather", out)
+            return out
         ctx.rank = dist.get_rank(group)
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x.contiguous(), group=group)
@@ -152,6 +199,20 @@ def sum_over(x, mesh, axes):
     return x
 
 
+@torch.no_grad()
+def max_over(x, mesh, axes):
+    """The elementwise maximum of ``x`` over the processes of ``axes`` (not
+    differentiable)."""
+    out = x.clone()
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        group = mesh.get_group(a)
+        if isinstance(group, CountedGroup):
+            group.record("all-reduce", out)
+        else:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def gather_over(x, mesh, axes, dim: int = 0):
     """Concatenate the processes' ``x`` along ``dim`` in the order of their
     flat coordinate over ``axes`` (the first axis outermost): the inverse
@@ -161,6 +222,21 @@ def gather_over(x, mesh, axes, dim: int = 0):
     for a in reversed(axs):                  # innermost axis first
         x = _AllGather.apply(mesh.get_group(a), dim, x)
     return x
+
+
+@torch.no_grad()
+def gather_tree(tree, specs, mesh):
+    """Every leaf whole from this process's slice under ``specs``: the
+    inverse of :func:`~.sharding.local_shard`.  Every process calls it; a
+    leaf replicated everywhere is returned as it is."""
+
+    def whole(leaf, spec):
+        for dim, e in enumerate(spec):
+            if e is not None and axes_size(mesh, e) > 1:
+                leaf = gather_over(leaf, mesh, e, dim)
+        return leaf
+
+    return map_tree(whole, tree, specs)
 
 
 def model_rank() -> int:

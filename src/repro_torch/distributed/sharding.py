@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -340,8 +341,8 @@ def local_shape(shape, spec: P, mesh) -> tuple:
 def local_shard(tree, specs, mesh):
     """Each leaf cut to this process's contiguous slice: along every dim
     with a spec entry, part ``axes_coord`` of ``axes_size`` equal parts.  A
-    leaf replicated everywhere is returned as it is; a cut leaf is made
-    contiguous (a copy)."""
+    leaf replicated everywhere is returned as it is; a cut leaf is a copy
+    (a view of a dim-0 cut would keep the whole leaf's storage alive)."""
 
     def cut(leaf, spec: P):
         out = leaf
@@ -353,6 +354,6 @@ def local_shard(tree, specs, mesh):
                 continue
             size = leaf.shape[i] // n
             out = out.narrow(i, axes_coord(mesh, e) * size, size)
-        return out if out is leaf else out.contiguous()
+        return out if out is leaf else out.clone(memory_format=torch.contiguous_format)
 
     return map_tree(cut, tree, specs)

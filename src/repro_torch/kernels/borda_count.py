@@ -43,9 +43,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import HBM_BW
 from . import _build
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SMS = 132                          # H100 SXM streaming multiprocessors
 BLOCK_ITEMS = 4096                 # items a block counts (32 KB at 64 bits); borda_count.cu::kBlockItems
 ONE_BLOCK_SLOTS = 16384            # slots one block of 512 threads takes in one launch (2^28 points)
@@ -147,4 +147,4 @@ def bound_ms(r: int, s: int, n_items: int):
     """Least time an H100 could take: :func:`live_bytes` over the memory
     rate (one add per slot is far below any compute peak).  Returns
     ``(ms, "bytes")``."""
-    return 1e3 * live_bytes(r, s, n_items) / HBM_BYTES_PER_S, "bytes"
+    return 1e3 * live_bytes(r, s, n_items) / HBM_BW, "bytes"

@@ -32,11 +32,11 @@ import math
 
 import torch
 
+from ..launch.mesh import HBM_BW
 from . import _build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -151,4 +151,4 @@ def bound_ms(n_valid: int, b: int, h: int, kv: int, s: int, hd: int,
     """Least time an H100 could take: :func:`live_bytes` over the card's
     memory rate (the ``4 * hd`` operations per valid slot and head are far
     below what the card does in that time)."""
-    return 1e3 * live_bytes(n_valid, b, h, kv, s, hd, itemsize) / HBM_BYTES_PER_S
+    return 1e3 * live_bytes(n_valid, b, h, kv, s, hd, itemsize) / HBM_BW

@@ -33,14 +33,11 @@ import math
 import numpy as np
 import torch
 
+from ..launch.mesh import HBM_BW, PEAK_FLOPS
 from . import _build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# peak operations per second by input type (H100 SXM data sheet, dense):
-# tensor cores for bf16, the fp32 units for fp32
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -187,5 +184,5 @@ def bound_ms(b: int, h: int, kv: int, sq: int, sk: int, hd: int, dtype, *,
     nbytes = item * hd * (2 * b * h * sq + 2 * b * kv * keys)
     ops = 4 * hd * b * h * live_pairs(sq, sk, causal=causal, window=window,
                                       q_offset=q_offset)
-    return max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"),
+    return max((1e3 * nbytes / HBM_BW, "bytes"),
                (1e3 * ops / PEAK_FLOPS[dtype], "operations"))

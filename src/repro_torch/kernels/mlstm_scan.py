@@ -42,15 +42,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import HBM_BW, PEAK_FLOPS
 from . import _build
 
 SUPPORTED_QK_DIMS = (8, 16, 32, 64, 128, 256)
 CHUNK = 64                         # steps of a chunk of the bf16 kernel (csrc kT)
 LOG_FLOOR = -50.0                  # the Pallas kernel's floor on a row's stabiliser
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# peak operations per second by input type (H100 SXM data sheet, dense):
-# tensor cores for bf16, the fp32 units for fp32
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NEG = -1e30
 
@@ -238,5 +235,5 @@ def bound_ms(bsz: int, hh: int, s: int, dqk: int, dv: int, dtype):
     the memory rate and :func:`operations` over the peak for the input type.
     Returns ``(ms, "bytes" | "operations")``."""
     item = torch.empty((), dtype=dtype).element_size()
-    return max((1e3 * live_bytes(bsz, hh, s, dqk, dv, item) / HBM_BYTES_PER_S, "bytes"),
+    return max((1e3 * live_bytes(bsz, hh, s, dqk, dv, item) / HBM_BW, "bytes"),
                (1e3 * operations(bsz, hh, s, dqk, dv) / PEAK_FLOPS[dtype], "operations"))

@@ -35,12 +35,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import HBM_BW, PEAK_FLOPS_FP32
 from . import _build
 
 MAX_K = 8
 MAX_EXPERTS = 256
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_FLOPS = 67e12                 # the ranks and the softmax are fp32 work
 SMS = 132                          # H100 SXM streaming multiprocessors
 MAX_WARPS = 32                     # moe_gating.cu::kMaxWarps
 ROW_EXPERTS = 8                    # rows held in registers; moe_gating.cu::kRowExperts
@@ -212,5 +211,5 @@ def bound_ms(t: int, e: int, k: int, itemsize: int):
     """Least time an H100 could take: the larger of :func:`live_bytes` over
     the memory rate and :func:`operations` over the fp32 peak.  Returns
     ``(ms, "bytes" | "operations")``."""
-    return max((1e3 * live_bytes(t, e, k, itemsize) / HBM_BYTES_PER_S, "bytes"),
-               (1e3 * operations(t, e, k) / FP32_FLOPS, "operations"))
+    return max((1e3 * live_bytes(t, e, k, itemsize) / HBM_BW, "bytes"),
+               (1e3 * operations(t, e, k) / PEAK_FLOPS_FP32, "operations"))

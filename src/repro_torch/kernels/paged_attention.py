@@ -37,11 +37,11 @@ import math
 
 import torch
 
+from ..launch.mesh import HBM_BW
 from . import _build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -173,4 +173,4 @@ def bound_ms(ctx_len, block_size: int, n_heads: int, n_kv: int, hd: int,
     """Least time an H100 could take for these rows: :func:`live_bytes` over
     the card's memory rate."""
     return 1e3 * live_bytes(ctx_len, block_size, n_heads, n_kv, hd,
-                            itemsize) / HBM_BYTES_PER_S
+                            itemsize) / HBM_BW

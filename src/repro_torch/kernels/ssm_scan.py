@@ -36,11 +36,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..launch.mesh import HBM_BW, PEAK_FLOPS_FP32
 from . import _build
 
 SUPPORTED_STATES = (4, 8, 16, 32, 64)
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_FLOPS = 67e12                 # the state is fp32 whatever x's type
 OPS_PER_STATE = 7                  # dt*a, exp, h = da*h + dx*b (3), y += h*c (2)
 SMS = 132                          # H100 SXM streaming multiprocessors
 EXPS_PER_CLOCK_SM = 16             # special-function unit results a clock an SM
@@ -197,8 +196,8 @@ def bound_ms(bsz: int, s: int, d: int, n: int, itemsize: int):
     one exp among them, over the fp32 peak.  Returns ``(ms, "bytes" |
     "operations")``."""
     ops = OPS_PER_STATE * bsz * s * d * n
-    return max((1e3 * live_bytes(bsz, s, d, n, itemsize) / HBM_BYTES_PER_S, "bytes"),
-               (1e3 * ops / FP32_FLOPS, "operations"))
+    return max((1e3 * live_bytes(bsz, s, d, n, itemsize) / HBM_BW, "bytes"),
+               (1e3 * ops / PEAK_FLOPS_FP32, "operations"))
 
 
 def exp_floor_ms(bsz: int, s: int, d: int, n: int) -> float:

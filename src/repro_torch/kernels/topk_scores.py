@@ -37,14 +37,13 @@ import ctypes
 
 import torch
 
+from ..launch.mesh import HBM_BW, PEAK_FLOPS_FP32
 from . import _build
 
 NEG_INF = -3.0e38                  # the reference's padding and mask value
 MAX_BLOCK_N = 8192                 # a tile's sort keys in 64 KB of shared memory
 MAX_K = 1024
 MERGE_RUN = 2048                   # the least candidates a merge block takes
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_FLOPS = 67e12                 # the compares are fp32 work
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -163,5 +162,5 @@ def bound_ms(n: int, k: int, itemsize: int, block_n: int = 1024):
     """Least time an H100 could take: the larger of :func:`live_bytes` over
     the memory rate and :func:`operations` over the fp32 peak.  Returns
     ``(ms, "bytes" | "operations")``."""
-    return max((1e3 * live_bytes(n, k, itemsize) / HBM_BYTES_PER_S, "bytes"),
-               (1e3 * operations(n, k, block_n) / FP32_FLOPS, "operations"))
+    return max((1e3 * live_bytes(n, k, itemsize) / HBM_BW, "bytes"),
+               (1e3 * operations(n, k, block_n) / PEAK_FLOPS_FP32, "operations"))

@@ -1,17 +1,20 @@
 """Device meshes for sharded serving: one process per device.
 
-Counterpart of ``src/repro/launch/mesh.py`` (``make_local_mesh``,
-``parse_mesh``).  The reference is one JAX controller over every device; the
+Counterpart of ``src/repro/launch/mesh.py`` (``make_production_mesh``,
+``make_local_mesh``, ``parse_mesh`` and the per-chip roofline constants).  The reference is one JAX controller over every device; the
 port runs SPMD, one process per device, and a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data", "model")``
 over the process group.  :class:`AbstractMesh` (axis names and sizes, no
 devices) stands in for ``jax.sharding.AbstractMesh`` where only the spec rules
 of ``distributed/sharding.py`` need a mesh.
 
-``make_production_mesh`` and the per-device hardware constants of the
-reference (its roofline denominators) come with the launch-tooling slice
-(``launch/{specs,dryrun,roofline}.py``), with H100 figures in place of the
-TPU's.
+:func:`make_production_mesh` is the reference's production mesh moved from a
+TPU v5e pod to H100 cards: 32 HGX nodes of 8 cards, the ``model`` axis inside
+a node's NVLink domain, ``data`` (and ``pod``) across nodes over InfiniBand.
+It returns an :class:`AbstractMesh`: the dry-run (``launch/dryrun.py``)
+counts one rank's program and never touches a device.  The per-card
+constants below are the roofline's denominators (``launch/roofline.py``) and
+every kernel's ``bound_ms``.
 
 A mesh larger than 1x1 needs one process per device, started by ``torchrun``::
 
@@ -19,6 +22,7 @@ A mesh larger than 1x1 needs one process per device, started by ``torchrun``::
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -27,6 +31,19 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 AXES = ("data", "model")
+
+# NVIDIA H100 SXM 80 GB, per card: the card the port is measured on
+PEAK_FLOPS_BF16 = 989e12    # FLOP/s, dense bf16 on the tensor cores (H100 SXM data sheet)
+PEAK_FLOPS_FP32 = 67e12     # FLOP/s, fp32 outside the tensor cores (same sheet)
+HBM_BW = 3.35e12            # bytes/s of HBM3 (same sheet)
+# bytes/s per direction per card over NVLink 4: 18 links of 25 GB/s (the
+# sheet's 900 GB/s counts both directions); the ``model`` axis
+NVLINK_BW = 450e9
+# bytes/s per card across nodes: one 400 Gb/s InfiniBand NDR port (ConnectX-7)
+# per card in an HGX H100 node; the ``data`` and ``pod`` axes
+IB_BW = 50e9
+PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS_BF16, torch.float32: PEAK_FLOPS_FP32}
+LINK_BW = {"model": NVLINK_BW, "data": IB_BW, "pod": IB_BW}
 
 
 class AbstractMesh:
@@ -44,6 +61,25 @@ class AbstractMesh:
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """``(32, 8)`` over ``("data", "model")``, 256 cards, or ``(2, 32, 8)``
+    over ``("pod", "data", "model")``, 512: the reference's ``(16, 16)`` /
+    ``(2, 16, 16)`` TPU v5e pods as HGX H100 nodes of 8 cards.  A model axis
+    of 16 would cross nodes."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 32, 8))
+    return AbstractMesh(("data", "model"), (32, 8))
+
+
+def mesh_label(mesh) -> str:
+    """``"32x8"``, ``"2x32x8"``: the axis sizes in order."""
+    return "x".join(str(s) for s in mesh.shape.values())
 
 
 def local_device(device=None) -> torch.device:

@@ -1,6 +1,8 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
-Counterpart of ``src/repro/launch/train.py``, single device.  Same flags, and
+Counterpart of ``src/repro/launch/train.py``, single device, as the
+reference's launcher has no mesh flag (``Trainer(mesh=, plan=)`` is the
+library's, README.md shows it under ``torchrun``).  Same flags, and
 one more: ``--device`` (default ``cuda``), because the port's entry points
 need the CPU asked for explicitly.  The schedule defaults to ``wsd`` for
 minicpm-2b and ``cosine`` otherwise, as in the reference::

@@ -111,13 +111,17 @@ class LM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         """Random parameters drawn from ``generator`` (which must live on
         ``device``; default: a new one seeded with 0).  ``device=None`` means
-        CUDA and raises without it."""
+        CUDA and raises without it.  On ``"meta"`` nothing is drawn: the
+        parameters have their shapes and dtypes and no storage (the
+        dry-run's abstract model)."""
         super().__init__()
         self.cfg = cfg
         self._fsdp: dict = {}               # path -> [(dim, data axes)]
         self._mesh = None
         dev = resolve_device(device)
-        if generator is None:
+        if dev.type == "meta":
+            generator = None
+        elif generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         dtype = dtype_of(cfg.dtype)
 
@@ -220,12 +224,13 @@ class LM(nn.Module):
         return p
 
     def param_tree(self) -> dict:
-        """Every parameter (the live tensors) in the reference's pytree:
+        """Every parameter (the live tensors; on a sharded LM this process's
+        slices, fsdp leaves not gathered) in the reference's pytree:
         ``embed``, ``final_norm``, ``stacks`` (a list of nested dicts),
         untied ``lm_head`` and, with an encoder, ``enc_stacks`` and
         ``enc_norm``."""
         tree = {"embed": self.embed, "final_norm": self.final_norm,
-                "stacks": [self.stack_params(i) for i in range(len(self.stacks))]}
+                "stacks": [_nest(st) for st in self.stacks]}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
         if self.enc_stacks is not None:

@@ -11,7 +11,11 @@ Leaves are numbered and named in the reference's order: the state is walked
 as ``jax.tree_util.tree_flatten_with_path`` walks the reference's pytree
 (dict keys sorted, lists indexed; :mod:`.tree`), so the port's
 ``LM.param_tree()`` gives the same ``params/stacks/0/ffn/w_up`` paths and the
-same files, byte for byte.  One process, one host directory.
+same files, byte for byte.  One process, one host directory: a sharded
+``Trainer`` gathers its state into the global tree
+(``distributed.context.gather_tree``) and the process at coordinate 0
+writes it, the same files as an unsharded run's; a restore gives global
+leaves, which the trainer cuts to its slices.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.context import sum_over
+from ..distributed.context import max_over, sum_over
 from ..distributed.sharding import axes_size
 from .tree import leaves, map_tree, unflatten
 
@@ -26,11 +26,16 @@ def init_error_state(params):
     return map_tree(lambda p: torch.zeros(p.shape, dtype=f32, device=p.device), params)
 
 
-def _quantize_(gf):
+def _quantize_(gf, reduce_max=None):
     """gf (fp32, the gradient plus the old error) is overwritten with the new
-    error.  Returns (q int8, scale fp32 0-dim, the dequantised gradient)."""
-    scale = torch.clamp(gf.abs().max(), min=1e-12) / torch.full((), 127.0, dtype=f32,
-                                                                device=gf.device)
+    error.  Returns (q int8, scale fp32 0-dim, the dequantised gradient).
+    ``reduce_max`` takes ``gf``'s largest magnitude to the whole leaf's, for
+    a leaf of which ``gf`` is one process's slice."""
+    amax = gf.abs().max()
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    scale = torch.clamp(amax, min=1e-12) / torch.full((), 127.0, dtype=f32,
+                                                      device=gf.device)
     deq = torch.round(gf / scale).clamp_(-127, 127)
     q = deq.to(torch.int8)
     torch.mul(q, scale, out=deq)
@@ -64,13 +69,16 @@ def compressed_grads(grads, err_state):
 
 
 @torch.no_grad()
-def compress_in_place(grads: list, errs: list) -> None:
+def compress_in_place(grads: list, errs: list, reduce_max=None) -> None:
     """:func:`compressed_grads` on the leaf lists of a gradient tree and its
     error state: ``errs[i]`` becomes the new error in place and ``grads[i]``
-    is replaced by the dequantised gradient in its own dtype."""
+    is replaced by the dequantised gradient in its own dtype.  On a mesh,
+    ``reduce_max[i]`` takes leaf ``i``'s largest magnitude over the
+    processes that hold its other slices, so that its scale is the whole
+    leaf's, as the reference compresses the global gradient."""
     for i, (g, e) in enumerate(zip(grads, errs)):
         e.add_(g)                          # g in fp32 + err
-        grads[i] = _quantize_(e)[2].to(g.dtype)
+        grads[i] = _quantize_(e, reduce_max and reduce_max[i])[2].to(g.dtype)
         del g
 
 
@@ -86,8 +94,4 @@ def ef_allreduce(mesh, axis_names, x_q, scale):
     axes = tuple(axis_names)
     n = axes_size(mesh, axes)
     acc = sum_over(x_q.to(torch.int32), mesh, axes)
-    s_max = scale.to(f32).clone()
-    for a in axes:
-        torch.distributed.all_reduce(s_max, op=torch.distributed.ReduceOp.MAX,
-                                     group=mesh.get_group(a))
-    return acc.to(f32) * s_max / n
+    return acc.to(f32) * max_over(scale.to(f32), mesh, axes) / n

@@ -81,36 +81,49 @@ def _is_matrix(p) -> bool:
     return p.ndim >= 2  # decay only matrices (norms/bias vectors exempt)
 
 
+def update_scalars(cfg: OptimConfig, step: int, gnorm, dev) -> tuple:
+    """``(lr, clip, c1, c2)`` of step ``step`` (the first is 1), 0-dim fp32
+    tensors on ``dev``: the rate, the clip factor of the global norm
+    ``gnorm`` and the two bias corrections."""
+    lr = schedule(cfg, step).to(dev)
+    clip = torch.clamp(torch.full((), cfg.grad_clip, dtype=f32, device=dev) / (gnorm + 1e-9),
+                       max=1.0)
+    c1 = (1.0 - torch.pow(_t(cfg.beta1), _t(float(step)))).to(dev)
+    c2 = (1.0 - torch.pow(_t(cfg.beta2), _t(float(step)))).to(dev)
+    return lr, clip, c1, c2
+
+
+@torch.no_grad()
+def adamw_leaf_(p, g, m, v, scalars: tuple, cfg: OptimConfig) -> None:
+    """One AdamW update of the leaf ``p`` and its moments ``m`` / ``v``, in
+    place, from its gradient ``g`` and :func:`update_scalars`."""
+    lr, clip, c1, c2 = scalars
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * clip
+    m.mul_(b1).add_(g * (1 - b1))
+    v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+    del g
+    u = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
+    if cfg.weight_decay and _is_matrix(p):
+        u.add_(cfg.weight_decay * p.float())
+    u.mul_(lr)
+    if p.dtype == f32:
+        p.sub_(u)
+    else:
+        p.copy_(p.float().sub_(u))
+
+
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: OptimConfig):
     """One AdamW step over the trees ``params`` (updated in place), ``grads``
     and ``opt_state`` (moments and step updated in place).  Returns
     ``(params, opt_state, {"lr", "grad_norm"})`` as the reference does."""
     flat_p = leaves(params)
-    dev = flat_p[0].device
     step = int(opt_state["step"]) + 1
-    lr = schedule(cfg, step).to(dev)
     gnorm = global_norm(grads)
-    clip = torch.clamp(torch.full((), cfg.grad_clip, dtype=f32, device=dev) / (gnorm + 1e-9),
-                       max=1.0)
-    b1, b2 = cfg.beta1, cfg.beta2
-    c1 = (1.0 - torch.pow(_t(b1), _t(float(step)))).to(dev)
-    c2 = (1.0 - torch.pow(_t(b2), _t(float(step)))).to(dev)
-
+    scalars = update_scalars(cfg, step, gnorm, flat_p[0].device)
     for p, g, m, v in zip(flat_p, leaves(grads), leaves(opt_state["m"]),
                           leaves(opt_state["v"])):
-        g = g.float() * clip
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
-        del g
-        u = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
-        if cfg.weight_decay and _is_matrix(p):
-            u.add_(cfg.weight_decay * p.float())
-        u.mul_(lr)
-        if p.dtype == f32:
-            p.sub_(u)
-        else:
-            p.copy_(p.float().sub_(u))
-        del u
+        adamw_leaf_(p, g, m, v, scalars, cfg)
     opt_state["step"] = torch.tensor(step, dtype=torch.int32)
-    return params, opt_state, {"lr": lr, "grad_norm": gnorm}
+    return params, opt_state, {"lr": scalars[0], "grad_norm": gnorm}

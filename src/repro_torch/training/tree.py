@@ -6,7 +6,8 @@ is nested dicts, lists and tuples with tensors or numpy arrays at the leaves
 The walk order is ``jax.tree_util``'s: the keys of a dict sorted, a list in
 order.  So leaf ``i`` of a port tree is leaf ``i`` of the reference's tree
 of the same structure, which the optimizer's zips and the checkpoint
-layout rely on.
+layout rely on.  A partition spec (``distributed.sharding.P``, a tuple) is a
+leaf, so that a tree of specs flattens beside the tree it describes.
 """
 from __future__ import annotations
 
@@ -14,8 +15,12 @@ from typing import Any, Callable
 
 import torch
 
+from ..distributed.sharding import P
+
 
 def _items(tree):
+    if isinstance(tree, P):                 # a partition spec is a leaf
+        return None
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):

@@ -42,10 +42,9 @@ def _main(rank, world, store_path, out_dir, case, args):
         dist.destroy_process_group()
 
 
-def run_ranks(case: str, world: int, tmp_path, *args, timeout: float = 120.0):
-    """Run ``case`` on ``world`` spawned ranks; returns their results in rank
-    order.  Raises with the first rank's traceback if one failed, and kills
-    every rank if they have not all ended within ``timeout`` seconds."""
+def start_ranks(case: str, world: int, tmp_path, *args):
+    """Spawn ``world`` ranks running ``case``; :func:`join_ranks` collects
+    them.  Several jobs may run at once."""
     ctx = mp.get_context("spawn")
     out_dir = os.path.join(str(tmp_path), f"{case}_{world}")
     os.makedirs(out_dir, exist_ok=True)
@@ -54,6 +53,15 @@ def run_ranks(case: str, world: int, tmp_path, *args, timeout: float = 120.0):
              for r in range(world)]
     for p in procs:
         p.start()
+    return case, out_dir, procs
+
+
+def join_ranks(job, timeout: float = 120.0):
+    """Every rank's result of a :func:`start_ranks` job, in rank order.
+    Raises with the first rank's traceback if one failed, and kills every
+    rank if they have not all ended within ``timeout`` seconds."""
+    case, out_dir, procs = job
+    world = len(procs)
     deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.0))
@@ -76,6 +84,12 @@ def run_ranks(case: str, world: int, tmp_path, *args, timeout: float = 120.0):
             raise RuntimeError(f"{case}: rank {r} failed:\n{value}")
         results.append(value)
     return results
+
+
+def run_ranks(case: str, world: int, tmp_path, *args, timeout: float = 120.0):
+    """Run ``case`` on ``world`` spawned ranks; returns their results in rank
+    order (see :func:`join_ranks`)."""
+    return join_ranks(start_ranks(case, world, tmp_path, *args), timeout)
 
 
 # ------------------------------------------------------------------ helpers
@@ -258,3 +272,76 @@ def moe_ef_case(rank, world, capacity_factor):
                 sharded=sharded.numpy(), global_split=global_split.numpy(),
                 whole=whole.numpy(), q=q.numpy(), scale=float(scale),
                 reduced=reduced.numpy())
+
+
+# ------------------------------------------------------ sharded training
+TRAIN_OPTIM = dict(lr=1e-3, warmup_steps=1, schedule="const", eps=1e-4)
+
+
+def train_cfg(steps, a, c, ckpt_dir=None):
+    from repro_torch.training import OptimConfig, TrainConfig
+    return TrainConfig(steps=steps, log_every=0, grad_accum=a, compression=c,
+                       ckpt_dir=ckpt_dir, ckpt_async=False,
+                       optim=OptimConfig(**TRAIN_OPTIM))
+
+
+def wide(arch):
+    """The reduced config in fp32 at d_model 1152: a dim above 1024, so that
+    ``zero1_specs`` cuts moments over the data axes."""
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced(arch), dtype="float32", d_model=1152)
+
+
+def train_case(rank, world, data, model, runs, weights, batches, ckpt_dir=None,
+               resume_dir=None, grads=False):
+    """Each run ``(arch, plan keywords, grad_accum, compression)`` of
+    ``runs`` through ``Trainer(mesh=, plan=)`` on a ``data`` x ``model``
+    mesh, from the reference's weights (``weights``: arch -> pickled numpy
+    tree) over two of ``batches``: its history and its gathered parameters
+    (rank 0).  The first run checkpoints into ``ckpt_dir``; with
+    ``resume_dir``, a llama run resumes from that directory's step 2 and
+    takes step 3 (``"resumed"``).  With ``grads``, the first llama stack's
+    ``wo`` gradient as ``torch.autograd.grad`` gives it under the shard
+    context and as the trainer reduces it, on every rank."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.distributed import ShardingPlan
+    from repro_torch.distributed.context import gather_tree
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training import Trainer
+    from repro_torch.training.tree import flatten_with_path, leaves, path_str
+    mesh = make_local_mesh(data, model, device="cpu")
+
+    def load(arch):
+        with open(weights[arch], "rb") as f:
+            return from_jax_params(pickle.load(f), wide(arch), device="cpu")
+
+    def whole(tr, state):
+        tree = gather_tree(state["params"], tr.state_specs(state)["params"], mesh)
+        return {path_str(p): t.detach().numpy().copy() for p, t in flatten_with_path(tree)}
+
+    tensors = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    out = {}
+    for i, (arch, plan, a, c) in enumerate(runs):
+        tr = Trainer(load(arch), train_cfg(2, a, c, ckpt_dir if i == 0 else None),
+                     mesh=mesh, plan=ShardingPlan(**plan))
+        state = tr.init_state()
+        snaps = []
+        hist = tr.run(state, iter(tensors[:2]), resume=False,
+                      on_step=lambda step, rec: snaps.append(whole(tr, state)))["history"]
+        out[(arch, tuple(plan.items()), a, c)] = (
+            [(r["loss"], r["grad_norm"]) for r in hist], snaps)
+    if resume_dir is not None:
+        tr = Trainer(load("llama3-8b"), train_cfg(3, 1, False, resume_dir), mesh=mesh)
+        state = tr.init_state()
+        hist = tr.run(state, iter(tensors[:3]), resume=True)["history"]
+        out["resumed"] = ([(r["step"], r["loss"], r["grad_norm"]) for r in hist],
+                          whole(tr, state))
+    if grads:
+        tr = Trainer(load("llama3-8b"), train_cfg(1, 1, False), mesh=mesh)
+        state = tr.init_state()
+        loss, raw = tr._loss_and_grads(tensors[0], leaves(state["params"]))
+        raw = [g.clone() for g in raw]
+        _, reduced = tr._reduce(loss, list(raw))
+        i = [path_str(p) for p, _ in flatten_with_path(state["params"])].index("stacks/0/wo")
+        out["grads"] = (raw[i].numpy(), reduced[i].numpy(), tuple(tr.pspecs[i]))
+    return out if rank == 0 else {k: v for k, v in out.items() if k == "grads"}

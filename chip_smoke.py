@@ -55,15 +55,21 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   logits, ``quick`` and ``pointwise`` orders and ledgers, a paged
   ``generate``), the ``dp_probe_slices`` counters, no leaked block, an
   ``fsdp`` plan; ``moe_impl="sharded"`` against ``"global"`` on
-  ``mixtral-8x7b`` at full width with 4 of 32 layers; and ``ef_allreduce``
-  of a 2^20-element leaf.  The sharded engine decodes through the dense
+  ``mixtral-8x7b`` at full width with 4 of 32 layers; ``ef_allreduce``
+  of a 2^20-element leaf; and ``minicpm-2b``, ``qwen2-vl-7b``,
+  ``hymba-1.5b``, ``xlstm-1.3b`` and ``seamless-m4t-medium`` at full width
+  and depth in bf16, seeded, each a 1x1 sharded engine bitwise the
+  unsharded one (probe logits, a ``quick`` order and ledger, a
+  ``generate``).  The sharded engine decodes through the dense
   paged path (the reference refuses the paged kernel on a mesh), so this
   path launches no kernel;
 - ``launch``: the launch-tooling slice.  ``launch.dryrun`` over every arch x
   shape on the production mesh (32x8) and llama3-8b's shapes on the
-  multi-pod one (2x32x8), on ``meta``: the error records must be exactly the
-  cells ``check_tensor_parallel`` refuses at a model axis of 8, every other
-  cell fully counted; the report's tables.  Then ``stablelm-1.6b`` at full
+  multi-pod one (2x32x8), on ``meta``: no error record, each of the 37
+  applicable cells fully counted (each cell of the archs a cut inside a
+  head, Hymba's SSM, the xLSTM, the encoder-decoder or the VLM's embeddings
+  brought to tensor parallelism last prints its per-card bytes and bound);
+  the report's tables.  Then ``stablelm-1.6b`` at full
   size with phase ``order_by``'s weights on a 1x1 NCCL mesh: a price sheet
   from the grid's records (an assumed $/card-hour) drives a judged ``auto``
   query through ``ServeEngine(paged_kernel=True)``, whose cost must be its
@@ -111,6 +117,7 @@ from repro_torch.core.oracles.model_oracle import ModelOracle  # noqa: E402
 from repro_torch.data import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.distributed import ShardingPlan  # noqa: E402
 from repro_torch.distributed.context import shard_context  # noqa: E402
+from repro_torch.distributed.sharding import cache_specs, local_shape  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import borda_count as bc  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -125,15 +132,14 @@ from repro_torch.launch import pricing as pricing_mod  # noqa: E402
 from repro_torch.launch import report as report_mod  # noqa: E402
 from repro_torch.launch.mesh import (PEAK_FLOPS, AbstractMesh, make_local_mesh,  # noqa: E402
                                     make_production_mesh)
-from repro_torch.launch.specs import cell_applicable  # noqa: E402
+from repro_torch.launch.specs import cache_specs_for, cell_applicable  # noqa: E402
 from repro_torch.models.config import SHAPES, InputShape  # noqa: E402
-from repro_torch.models.model import check_tensor_parallel  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.blocks import _attn_seq, layer_params  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.layers import cut_rows, head_span, rms_norm  # noqa: E402
 from repro_torch.serving import BatchScheduler, ServeEngine  # noqa: E402
 from repro_torch.serving.engine import PAGED_KERNEL_ATOL, PAGED_KERNEL_RTOL  # noqa: E402
 from repro_torch.training import OptimConfig, TrainConfig, Trainer  # noqa: E402
@@ -2067,6 +2073,11 @@ def phase_llama(device, card, seed) -> None:
 
 
 MESH_PATHS = ("quick", "pointwise")
+# full width and depth on the 1x1 mesh: the archs whose stub frontends,
+# encoder, SSM and xLSTM blocks take the sharded path since tensor
+# parallelism covers every arch
+MESH_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hymba-1.5b", "xlstm-1.3b",
+              "seamless-m4t-medium")
 MESH_MOE = dict(arch="mixtral-8x7b", depth=4, batch=(2, 32))
 EF_LEAF = 1 << 20
 
@@ -2137,6 +2148,8 @@ def phase_mesh(device, card, seed) -> dict:
     launches = read_launches()                 # ---- and ends here
     del base, eng, repl, fsdp, lm
     release()
+    for arch in MESH_ARCHS:
+        mesh_arch(arch, mesh, device, line, seed)
 
     t0 = time.perf_counter()
     mcfg = family_config(MESH_MOE["arch"], MESH_MOE["depth"])
@@ -2171,6 +2184,41 @@ def phase_mesh(device, card, seed) -> dict:
     return launches
 
 
+def mesh_arch(arch, mesh, device, line, seed) -> None:
+    """``arch`` at full width and depth in bf16 from ``seed``: the 1x1
+    sharded engine against the unsharded one, bitwise: probe logits (the
+    stub frontends' lookups and the encoder under the shard context), a
+    ``quick`` order and ledger, a ``generate``."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = seeded_lm(get_config(arch), device, seed)
+    kw = dict(paged_kernel=False, max_new_tokens=16)
+    base, eng = ServeEngine(lm, **kw), ServeEngine(lm, mesh=mesh, **kw)
+    probes = ([eng.score_parts(p, QUERY) for p in PASSAGES[:6]]
+              + [eng._compare_parts(a, PASSAGES[0], QUERY) for a in PASSAGES[1:6]])
+    want = base.submit_probes(probes)
+    got = eng.submit_probes(probes)
+    assert got.shape == (len(probes), lm.cfg.vocab_size) and np.isfinite(got).all()
+    assert np.array_equal(got, want), float(np.abs(got - want).max())
+    qd = dict(path="quick", rationale=0)
+    keys = as_keys(PASSAGES[:6])
+    bres, _, bledger, _, _ = solo(base, keys, qd)
+    sres, _, sledger, delta, _ = solo(eng, keys, qd)
+    assert sres.uids() == bres.uids() and sledger == bledger, (sres.uids(), bres.uids())
+    outs = eng.generate(GEN_PROMPTS[:4], max_new_per=GEN_LIMITS[:4])
+    assert outs == base.generate(GEN_PROMPTS[:4], max_new_per=GEN_LIMITS[:4])
+    cfg = lm.cfg
+    line("arch", t0, arch=cfg.name, dtype=cfg.dtype, input_mode=cfg.input_mode,
+         kinds=sorted({k for k, _ in cfg.pattern + cfg.enc_pattern}),
+         layers=cfg.decoder_layers(), encoder_layers=cfg.encoder_layers(),
+         params=sum(p.numel() for p in lm.parameters()), rows=len(probes),
+         logits_bitwise=True, order=sres.uids(), n_calls=sres.n_calls, submissions=delta[0],
+         ledgers_equal=True, generate_rows=len(outs), tokens_equal=True,
+         paged=eng.paged_enabled)
+    del base, eng, lm
+    release()
+
+
 # ----------------------------------------------------------- launch tooling
 LAUNCH_ARCH = "stablelm-1.6b"
 # card-sized cells for the roofline against the card (not in SHAPES: the
@@ -2189,22 +2237,45 @@ SHARDED_PLANS = (("zero1", ShardingPlan(), 1, False),
                  ("fsdp", ShardingPlan(fsdp=True), 1, False),
                  ("zero1_accum2_int8", ShardingPlan(), 2, True))
 LAUNCH_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+# the applicable cells of the grid (44 less the 7 pure-attention long_500k
+# skips), and the archs whose cells tensor parallelism took last
+LAUNCH_CELLS = 37
+TP_NEW_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hymba-1.5b", "xlstm-1.3b",
+                "seamless-m4t-medium")
 
 
-def refused_at(cfg, model: int) -> bool:
-    try:
-        check_tensor_parallel(cfg, model)
-    except (NotImplementedError, ValueError):
-        return True
-    return False
+def reference_cache_bytes(arch, shape_name) -> int:
+    """Per-card bytes of ``arch``'s decode caches at ``shape_name`` in the
+    reference's layout on the production mesh: its ``cache_specs`` (feature
+    layout: kv heads over ``model`` where they divide, else head_dim)."""
+    mesh = make_production_mesh()
+    caches = cache_specs_for(get_config(arch), SHAPES[shape_name])
+    specs = cache_specs(caches, mesh)
+    return sum(math.prod(local_shape(t.shape, sp, mesh)) * t.element_size()
+               for t, sp in zip(leaves(caches), leaves(specs)))
+
+
+def head_spans(cfg, model: int) -> dict:
+    """What a cut of ``n_heads * hd`` over ``model`` processes costs: the q
+    heads a card attends (the whole heads its rows of ``wo`` read) against
+    ``n_heads / model``, and the kv heads it caches."""
+    rows = cut_rows(cfg.n_heads * cfg.hd, model)
+    kv = cfg.n_kv_heads if cfg.pattern[0][0] not in ("mlstm", "slstm") else cfg.n_heads
+    spans = [head_span(cfg.n_heads, kv, cfg.hd, rows, r) for r in range(model)]
+    return dict(model=model, n_heads=cfg.n_heads, kv_heads=kv, hd=cfg.hd,
+                q_heads_per_card=[sp.nq for sp in spans],
+                kv_heads_per_card=[sp.nkv for sp in spans],
+                attention_flops_ratio=sum(sp.nq for sp in spans) / cfg.n_heads)
 
 
 def launch_grid(card) -> list:
     """``dryrun_cell`` over every arch x shape on the single-pod production
-    mesh and llama3-8b's shapes on the multi-pod one.  The error records must
-    be exactly the applicable cells of the archs ``check_tensor_parallel``
-    refuses at a model axis of 8; every other applicable cell must carry
-    memory, FLOP, byte, collective and roofline entries."""
+    mesh and llama3-8b's shapes on the multi-pod one.  No cell may fail:
+    every applicable cell must carry memory, FLOP, byte, collective and
+    roofline entries.  Each cell of the archs whose cut falls inside a head
+    or that tensor parallelism took last (``TP_NEW_ARCHS``) prints its
+    per-card argument, temp and cache bytes and its bound on a line of its
+    own."""
     os.makedirs(LAUNCH_OUT, exist_ok=True)
     out = os.path.join(LAUNCH_OUT, "launch_dryrun.jsonl")
     if os.path.exists(out):
@@ -2216,26 +2287,37 @@ def launch_grid(card) -> list:
                                          verbose=False)
     wall = time.perf_counter() - t0
     recs += multi
-    model = make_production_mesh().shape["model"]
-    want = {(r["arch"], r["shape"], r["multi_pod"]) for r in recs
-            if cell_applicable(get_config(r["arch"]), r["shape"])[0]
-            and refused_at(get_config(r["arch"]), model)}
-    got = {(r["arch"], r["shape"], r["multi_pod"]) for r in recs if "error" in r}
-    assert got == want, (sorted(got ^ want), [r["error"] for r in recs if "error" in r])
-    counted = [r for r in recs if "error" not in r and "skipped" not in r]
+    model_axis = make_production_mesh().shape["model"]
+    errors = [(r["arch"], r["shape"], r["error"]) for r in recs if "error" in r]
+    assert not errors, errors
+    applicable = [r for r in recs if cell_applicable(get_config(r["arch"]), r["shape"])[0]]
+    counted = [r for r in recs if "skipped" not in r]
+    assert len(counted) == len(applicable) == LAUNCH_CELLS, (len(counted), len(applicable))
     for r in counted:
         ma, ca, rf = r["memory_analysis"], r["cost_analysis"], r["roofline"]
         assert min(ma["argument_size_in_bytes"], ma["output_size_in_bytes"],
                    ma["temp_size_in_bytes"]) > 0, r
         assert ca["flops"] > 0 and ca["bytes accessed"] > 0, r
         assert r["collectives"]["total_bytes"] > 0 and rf["step_time_bound_s"] > 0, r
+        if r["arch"] in TP_NEW_ARCHS:
+            ref_cache = (reference_cache_bytes(r["arch"], r["shape"])
+                         if r["kind"] == "decode" else 0)
+            say("launch.cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                argument_bytes=ma["argument_size_in_bytes"], temp_bytes=ma["temp_size_in_bytes"],
+                cache_bytes=ma["cache_size_in_bytes"], reference_layout_cache_bytes=ref_cache,
+                all_gather_bytes=r["collectives"]["bytes"]["all-gather"],
+                all_reduce_bytes=r["collectives"]["bytes"]["all-reduce"],
+                flops=ca["flops"], inner_scan_correction=rf["inner_scan_correction"],
+                dominant=rf["dominant"], step_time_bound_s=rf["step_time_bound_s"])
+    for arch in TP_NEW_ARCHS:
+        say("launch.heads", arch=arch, **head_spans(get_config(arch), model_axis))
     print(report_mod.dryrun_table(recs), flush=True)
     print(report_mod.roofline_table(recs), flush=True)
-    say("launch.grid", card=card, cells=len(recs), counted=len(counted), errors=len(got),
+    say("launch.grid", card=card, cells=len(recs), counted=len(counted), errors=len(errors),
         skipped=sum("skipped" in r for r in recs), wall_seconds=wall,
         count_seconds=sum(r.get("count_s", 0.0) for r in counted),
-        refused_archs=sorted({a for a, _, _ in got}), records="chiprun_out/launch_dryrun.jsonl",
-        errors_are_the_refused_cells=True)
+        new_cells=sum(r["arch"] in TP_NEW_ARCHS for r in counted),
+        records=os.path.relpath(out, os.path.dirname(LAUNCH_OUT)))
     return recs
 
 

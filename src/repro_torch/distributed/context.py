@@ -14,10 +14,14 @@ itself, through the helpers below, which read the shard context and are the
 identity outside one:
 
  * :func:`model_sum`: a differentiable sum over the ``model`` group (the
-   row-parallel projections ``wo`` / ``w_down`` and the vocab-parallel
-   embedding);
+   row-parallel projections ``wo`` / ``w_down`` / ``w_out`` and the
+   vocab-parallel embedding); :func:`model_row_sum` sums a product only
+   when its weight's rows are a cut;
  * :func:`model_gather`: a differentiable all-gather over ``model`` (the
-   vocab-split logits);
+   vocab-split logits); :func:`model_columns` makes a column-cut product
+   whole and :func:`model_column_range` takes a range of its columns (the
+   heads a process computes when a cut falls inside a head, an SSM's
+   ``x`` / ``z`` halves);
  * :func:`rows_gather`: an all-gather over the data axes of a row-split
    batch, when the context says its rows are split (its data axes are not
    empty).
@@ -254,6 +258,31 @@ def model_sum(x):
 def model_gather(x, dim: int = -1):
     ctx = _SHARD_CTX.get()
     return x if ctx is None else gather_over(x, ctx[0], ctx[2], dim)
+
+
+def model_columns(y, full: int):
+    """``y`` with its last dim whole: gathered over ``model`` when it holds
+    a column-cut slice of ``full`` (a product through a column-cut
+    weight)."""
+    return y if y.shape[-1] == full else model_gather(y, -1)
+
+
+def model_column_range(y, full: int, start: int, width: int):
+    """Columns ``[start, start + width)`` of the whole product of which
+    ``y`` is this process's column-cut slice (of ``full`` columns): ``y``
+    itself when its columns are exactly those, else cut from the whole
+    product, gathered over ``model`` where ``y`` is a cut."""
+    cols = y.shape[-1]
+    if cols != full and cols == width and model_rank() * cols == start:
+        return y
+    y = model_columns(y, full)
+    return y if width == full else y.narrow(-1, start, width)
+
+
+def model_row_sum(y, rows: int, full: int):
+    """``y``, a product through a weight holding ``rows`` of its ``full``
+    input rows, summed over ``model`` when they are a cut."""
+    return y if rows == full else model_sum(y)
 
 
 def rows_split() -> bool:

@@ -17,9 +17,11 @@ that counts every aten op.
   ``inference_mode`` composite ops such as ``matmul`` reach the counter
   undecomposed, and the registry knows ``mm``).  Parameters are built on
   ``meta`` (nothing drawn).  Decode caches are held as the sharded model computes
-  them: rows over the data axes where the batch divides them, kv heads over
-  ``model`` (the reference's ``cache_specs`` may cut a cache's sequence or
-  head_dim instead, which the eager per-shard attention cannot take).
+  them (``LM.init_caches`` of the sharded LM): rows over the data axes where
+  the batch divides them; the kv heads, recurrent heads and SSM channels the
+  rank's layers compute (kv heads over ``model`` where they divide, else the
+  whole heads the rank's cut of the q heads reads; the reference's
+  ``cache_specs`` may cut a cache's sequence or head_dim instead).
 * **FLOPs**: ``torch.utils.flop_counter``'s registry over every op (matmuls,
   attention, convolutions; elementwise work counts 0, as in that counter).
 * **Bytes**: each op's inputs and outputs (an eager program reads and writes
@@ -30,7 +32,8 @@ that counts every aten op.
 * **Collectives**: every ``all-reduce`` / ``all-gather`` of the counting
   mesh, forward and backward, by kind and by axis, result bytes.
 * **Memory**: ``argument_size_in_bytes`` and ``output_size_in_bytes`` from
-  the slices; ``alias_size_in_bytes`` the outputs that are arguments updated
+  the slices (``cache_size_in_bytes`` the decode caches among the
+  arguments); ``alias_size_in_bytes`` the outputs that are arguments updated
   in place (state, caches); ``temp_size_in_bytes`` the high-water mark of
   the storages the step allocated and had not yet freed (outputs included).
 * **Kernels**: no counted step reaches a hand-written kernel (the paged
@@ -38,8 +41,9 @@ that counts every aten op.
   kernel wrapper given a ``meta`` tensor raises, so no kernel is ever counted
   by its plain version's ops.
 
-A configuration ``LM.sharded`` refuses (``check_tensor_parallel``) gives a
-record with ``error`` and a non-zero exit, as the reference's failures do.
+A cell that raises (an unknown arch, say) gives a record with ``error`` and
+a non-zero exit, as the reference's failures do; every arch of the
+registry lays out on the production meshes.
 ``--save-hlo`` has no counterpart: an eager program has no HLO.  The
 reference's ``--cache-layout seq`` has none either (see above)::
 
@@ -65,9 +69,8 @@ from torch.utils.flop_counter import flop_registry
 from ..configs import get_config, get_reduced, list_archs
 from ..distributed.context import (CountingMesh, activation_spec,
                                    sequence_parallel_spec, shard_context)
-from ..distributed.sharding import (MODEL, P, ShardingPlan, axes_size,
-                                    batch_specs, data_axes, local_shard,
-                                    map_tree)
+from ..distributed.sharding import (ShardingPlan, axes_size, batch_specs,
+                                    data_axes, local_shard)
 from ..models.config import SHAPES, InputShape
 from ..models.model import LM
 from ..training.train_loop import TrainConfig, Trainer
@@ -191,26 +194,6 @@ class StepCounter(TorchDispatchMode):
 
 
 # ---------------------------------------------------------------- the cells
-def cache_cut_specs(caches, mesh, rows_split: bool):
-    """Decode caches as the sharded model holds them: integer leaves (ring
-    positions) whole; every other stacked leaf's rows (dim 1) over the data
-    axes when ``rows_split``, and a 5-dim leaf's heads (dim 3) over
-    ``model``."""
-    daxes = data_axes(mesh)
-
-    def spec(leaf):
-        if not leaf.is_floating_point() or leaf.dim() < 2:
-            return P()
-        entries: list = [None] * leaf.dim()
-        if rows_split:
-            entries[1] = daxes
-        if leaf.dim() == 5:
-            entries[3] = MODEL
-        return P(*entries)
-
-    return map_tree(spec, caches)
-
-
 def _rows(tree, mesh):
     """This rank's rows of a batch tree, and whether they are split."""
     specs = batch_specs(tree, mesh)
@@ -241,7 +224,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     and ``shape`` replace the production mesh and ``SHAPES[shape_name]``
     (smaller meshes and card-sized shapes); ``reduced`` takes the arch's
     reduced config.  ``unroll`` is recorded only: the port has no rolled
-    scans.  Raises where ``LM.sharded`` refuses the configuration."""
+    scans."""
     t0 = time.time()
     cfg = dataclasses.replace((get_reduced if reduced else get_config)(arch),
                               scan_unroll=unroll,
@@ -286,8 +269,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 outs = list(local.prefill(batch))
         else:
             token, split = _rows(decode_token_spec(cfg, shape), cmesh)
-            caches = cache_specs_for(cfg, shape)
-            caches = local_shard(caches, cache_cut_specs(caches, cmesh, split), cmesh)
+            caches = cache_specs_for(cfg, shape, local, token.shape[0])
             # the cache's last position (a ring's wraps past its window)
             position = (shape.seq_len // 2 if cfg.input_mode == "encdec"
                         else shape.seq_len) - 1
@@ -297,9 +279,11 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 outs = list(local.decode_step(caches, token, position))
     rec["count_s"] = round(time.time() - t0, 2)
     arg_t, out_t = _tensors(args), _tensors(outs)
+    cache_t = _tensors(args[1]) if shape.kind == "decode" else []
     arg_ids = {id(t.untyped_storage()) for t in arg_t}
     rec["memory_analysis"] = {
         "argument_size_in_bytes": storage_bytes(arg_t),
+        "cache_size_in_bytes": storage_bytes(cache_t),
         "output_size_in_bytes": storage_bytes(out_t),
         "alias_size_in_bytes": storage_bytes(
             [t for t in out_t if id(t.untyped_storage()) in arg_ids]),

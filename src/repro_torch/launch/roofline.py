@@ -15,10 +15,13 @@ the port has neither.  Its dry-run (``launch/dryrun.py``) counts one rank's
 eager program on ``meta``: FLOPs by ``torch.utils.flop_counter``'s registry,
 bytes as every op's inputs and outputs (each op of an eager program reads
 and writes HBM), and each collective's result bytes by kind and axis.  So
-``collective_bytes_by_kind`` (an HLO parser) has no counterpart, and since
-the count runs every step of every recurrence in Python, no rolled scan hides
-work: :func:`inner_scan_flop_correction` is ported and tested, and the
-port's terms record ``inner_scan_correction`` 0.0.
+``collective_bytes_by_kind`` (an HLO parser) has no counterpart.  On ``meta``
+a recurrence (the SSM and mLSTM chunk loops, the sLSTM step loop) runs one
+trip (``models.layers.rolled``), as the reference's cost analysis counts a
+rolled scan's body once, so the terms add
+:func:`inner_scan_flop_correction`, the reference's correction for the
+other trips' matmul FLOPs, to the counted FLOPs as the reference does; their
+bytes and temp memory count one trip.
 
 MODEL_FLOPS uses the 6*N*D (train) / 2*N*D (inference) convention with
 N = active params (MoE: top-k experts only), D = tokens processed; the
@@ -83,9 +86,9 @@ def roofline_terms(rec: dict, cfg: ModelConfig, shape: InputShape) -> dict:
     bytes_dev = ca.get("bytes accessed", 0.0) or 0.0
     by_axis = rec.get("collectives", {}).get("bytes_by_axis", {})
 
-    correction = 0.0          # the count holds every step of every scan
+    correction = inner_scan_flop_correction(cfg, shape)
     counted_global = flops_dev * chips + correction
-    compute_s = flops_dev / PEAK_FLOPS_BF16
+    compute_s = counted_global / (chips * PEAK_FLOPS_BF16)
     memory_s = bytes_dev / HBM_BW
     collective_s = sum(b / LINK_BW[axis] for axis, b in by_axis.items())
     terms = {"compute_s": compute_s, "memory_s": memory_s,

@@ -18,7 +18,7 @@ embeddings; enc-dec splits seq_len equally between encoder and decoder.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -50,11 +50,13 @@ def batch_specs_for(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
     return {"tokens": sds((b, s), i32)}
 
 
-def cache_specs_for(cfg: ModelConfig, shape: InputShape) -> Any:
+def cache_specs_for(cfg: ModelConfig, shape: InputShape, lm: Optional[LM] = None,
+                    batch: Optional[int] = None) -> Any:
     """Abstract decode caches (a list of layer-stacked caches, one a stack)
-    for decode cells."""
-    lm = LM(cfg, device="meta")
-    b = shape.global_batch
+    for decode cells: the whole model's, or with ``lm`` (a sharded LM on
+    ``meta``) its process's part of ``batch`` rows."""
+    lm = lm or LM(cfg, device="meta")
+    b = batch or shape.global_batch
     cache_len = shape.seq_len if cfg.input_mode != "encdec" else shape.seq_len // 2
     enc_len = shape.seq_len // 2 if cfg.input_mode == "encdec" else 0
     return lm.init_caches(b, cache_len, enc_len=enc_len)

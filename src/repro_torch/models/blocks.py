@@ -14,12 +14,19 @@ attention: ``einsum``, ``bf16`` or ``qchunk`` (query-blocked).  In mode
 says (:func:`apply_stack`).
 
 On a mesh (the serving engine's ``distributed.context.shard_context``) a
-layer gets this process's slice of its parameters and is tensor-parallel in
-the Megatron style: ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` and the
-experts' F dim column-split, whole heads only, ``wo`` / ``w_down`` row-split
-and their products summed over the ``model`` group.  Head counts are read off
-the weights; a product is summed exactly when its contracted dim is smaller
-than the config's, so without a mesh nothing changes.  ``moe_impl="sharded"``
+layer gets this process's slice of its parameters, cut as the reference's
+``param_specs`` cuts them, and is tensor-parallel in the Megatron style:
+``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` and the experts' F dim
+column-split, ``wo`` / ``w_down`` row-split and their products summed over
+the ``model`` group.  A cut of the flattened ``n_heads * hd`` may fall
+inside a head: a process attends the whole heads its rows of ``wo`` read
+(``layers.head_span``), taking q / k / v from its own columns where they
+are exactly those heads and from the products gathered over ``model``
+otherwise, and keeps its own columns of the output; its caches hold the kv
+heads it attends.  The SSM and xLSTM blocks do the same over their own
+cuts (``ssm.py``, ``xlstm.py``).  Spans are read off the weights; a product
+is summed exactly when its contracted dim is smaller than the config's, so
+without a mesh nothing changes.  ``moe_impl="sharded"``
 dispatches each data shard's own tokens (:func:`~.moe.moe_ffn_sharded`); the
 global dispatch of a row-split batch ranks capacity over the whole batch,
 gathered over the data axes.
@@ -48,12 +55,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.context import (constrain, get_shard_context, local_rows,
-                                   model_sum, pin_rows, rows_gather,
+                                   model_column_range, model_rank,
+                                   model_row_sum, pin_rows, rows_gather,
                                    rows_split)
 from .config import ModelConfig
-from .layers import (KVCache, PagedKV, apply_rope, causal_mask, dtype_of,
-                     full_mask, gqa_attention, gqa_attention_bf16,
-                     gqa_attention_qchunk,
+from .layers import (HeadSpan, KVCache, PagedKV, apply_rope, causal_mask,
+                     cut_rows, dtype_of, full_mask, gqa_attention,
+                     gqa_attention_bf16, gqa_attention_qchunk, head_span,
                      paged_attend_dense, paged_decode_attention_dense,
                      paged_write,
                      paged_write_index, rms_norm, stacked_dense_init, swiglu)
@@ -173,18 +181,31 @@ def _copy_into(dst, src) -> None:
         _copy_into(d, s)
 
 
+def kv_heads_on(cfg: ModelConfig, model: int, rank: int) -> int:
+    """The kv heads the process at ``rank`` of a model axis of ``model``
+    attends, and so caches (:func:`~.layers.head_span`)."""
+    if model == 1:
+        return cfg.n_kv_heads
+    h, hd = cfg.n_heads, cfg.hd
+    return head_span(h, cfg.n_kv_heads, hd, cut_rows(h * hd, model), rank).nkv
+
+
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
-                     enc_len: int = 0, device=None):
+                     enc_len: int = 0, device=None, model: int = 1, rank: int = 0):
     """Cache for ONE layer of ``kind``: a ring KVCache (of length
     ``min(sliding_window, cache_len)`` for windowed kinds), with the SSM
     state beside it for Hymba, or with the cross K and V over ``enc_len``
     encoder positions for ``xdec``; the mLSTM / sLSTM state; ``()`` for
-    ``enc``."""
+    ``enc``.  On a model axis of ``model`` the process at ``rank`` holds
+    what its layer computes: the kv heads and recurrent heads of its
+    :func:`~.layers.head_span`, its slice of the SSM's channels."""
     _check_kind(kind)
     dtype = dtype_of(cfg.dtype)
+    h, hd = cfg.n_heads, cfg.hd
 
     def kvc(length):
-        return KVCache.init(batch, length, cfg.n_kv_heads, cfg.hd, dtype, device)
+        return KVCache.init(batch, length, kv_heads_on(cfg, model, rank), hd,
+                            dtype, device)
 
     win = min(cfg.sliding_window, cache_len)
     if kind in ("attn", "moe"):
@@ -193,17 +214,18 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
         return kvc(win)
     if kind in ("hymba_g", "hymba_l"):
         return (kvc(cache_len if kind == "hymba_g" else win),
-                init_ssm_state(batch, cfg.d_inner, cfg.ssm_state,
+                init_ssm_state(batch, cut_rows(cfg.d_inner, model), cfg.ssm_state,
                                cfg.ssm_conv_width, dtype, device))
     if kind == "xdec":
         def cross():
-            return torch.zeros((batch, enc_len, cfg.n_kv_heads, cfg.hd),
+            return torch.zeros((batch, enc_len, kv_heads_on(cfg, model, rank), hd),
                                dtype=dtype, device=device)
         return kvc(cache_len), cross(), cross()
+    n_rec = head_span(h, h, hd, cut_rows(h * hd, model), rank).nq
     if kind == "mlstm":
-        return init_mlstm_state(batch, cfg.n_heads, cfg.qk, cfg.hd, device)
+        return init_mlstm_state(batch, n_rec, cfg.qk, hd, device)
     if kind == "slstm":
-        return init_slstm_state(batch, cfg.n_heads, cfg.hd, device)
+        return init_slstm_state(batch, n_rec, hd, device)
     return ()                               # enc
 
 
@@ -211,12 +233,47 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
 def _split_sum(y, w, full: int):
     """``y``, a product through ``w``, summed over the model group when
     ``w`` is row-split (its input dim smaller than ``full``)."""
-    return model_sum(y) if w.shape[-2] != full else y
+    return model_row_sum(y, w.shape[-2], full)
 
 
-def _out_proj(p, out, cfg: ModelConfig):
-    return _split_sum(out.reshape(*out.shape[:2], -1) @ p["wo"], p["wo"],
-                      cfg.n_heads * cfg.hd)
+def _span(p, cfg: ModelConfig, prefix: str = "") -> HeadSpan:
+    """The heads this process computes: those its output projection's rows
+    read (:func:`~.layers.head_span`)."""
+    return head_span(cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                     p[f"{prefix}wo"].shape[-2], model_rank())
+
+
+def _heads(y, full: int, first: int, count: int, hd: int):
+    """Heads ``[first, first + count)`` (B, S, count, hd) of ``y``, this
+    process's slice of a product through a head projection of ``full``
+    columns (:func:`~..distributed.context.model_column_range`)."""
+    return model_column_range(y, full, first * hd, count * hd).reshape(
+        *y.shape[:2], count, hd)
+
+
+def _attend(fn, q, k, v, span: HeadSpan, group: int):
+    """``fn(q, k, v)`` over the span's heads.  GQA pairs q head ``j`` with kv
+    head ``j // group``: where the span's q heads are not whole groups, one
+    call a kv head over the q heads of its group that the span holds."""
+    if span.grouped(group):
+        return fn(q, k, v)
+    outs = []
+    for j in range(span.nkv):
+        lo = max(span.h0, (span.kv0 + j) * group) - span.h0
+        hi = min(span.h0 + span.nq, (span.kv0 + j + 1) * group) - span.h0
+        outs.append(fn(q[:, :, lo:hi], k[:, :, j:j + 1], v[:, :, j:j + 1]))
+    return torch.cat(outs, dim=2)
+
+
+def _out_proj(p, out, cfg: ModelConfig, span: HeadSpan, prefix: str = ""):
+    """The span's attention output (B, S, nq, hd) through this process's
+    rows of ``wo``: its columns ``[col0, col0 + cols)``, summed over
+    ``model`` where the rows are a cut."""
+    y = out.reshape(*out.shape[:2], -1)
+    if span.cols != y.shape[-1]:
+        y = y.narrow(-1, span.col0, span.cols)
+    w = p[f"{prefix}wo"]
+    return _split_sum(y @ w, w, cfg.n_heads * cfg.hd)
 
 
 def _ffn(h, p, cfg: ModelConfig):
@@ -234,39 +291,49 @@ def _moe(p, h, cfg: ModelConfig):
                       p["w_down"], cfg.d_ff)
 
 
-def _qkv(p, x, cfg: ModelConfig, angles):
-    b, s, _ = x.shape
+def _qkv(p, x, cfg: ModelConfig, angles, span: HeadSpan):
     hd = cfg.hd
-    h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd    # local heads
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads * hd, span.h0, span.nq, hd)
+    k = _heads(x @ p["wk"], cfg.n_kv_heads * hd, span.kv0, span.nkv, hd)
+    v = _heads(x @ p["wv"], cfg.n_kv_heads * hd, span.kv0, span.nkv, hd)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
     return q, k, v
 
 
+def _group(cfg: ModelConfig) -> int:
+    return cfg.n_heads // cfg.n_kv_heads
+
+
 def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False):
-    q, k, v = _qkv(p, x, cfg, angles)
+    span = _span(p, cfg)
+    q, k, v = _qkv(p, x, cfg, angles, span)
     s = x.shape[1]
     if cfg.attn_impl == "qchunk" and not bidir:
-        out = gqa_attention_qchunk(q, k, v, causal=True, window=window,
-                                   chunk=cfg.attn_chunk)
+        def fn(q, k, v):
+            return gqa_attention_qchunk(q, k, v, causal=True, window=window,
+                                        chunk=cfg.attn_chunk)
     else:
         mask = (full_mask(s, s, device=x.device) if bidir
                 else causal_mask(s, s, window, device=x.device))
-        fn = (gqa_attention_bf16 if cfg.attn_impl in ("bf16", "qchunk")
-              else gqa_attention)
-        out = fn(q, k, v, mask)
-    return _out_proj(p, out, cfg), (k, v)
+        att = (gqa_attention_bf16 if cfg.attn_impl in ("bf16", "qchunk")
+               else gqa_attention)
+
+        def fn(q, k, v):
+            return att(q, k, v, mask)
+    out = _attend(fn, q, k, v, span, _group(cfg))
+    return _out_proj(p, out, cfg, span), (k, v)
 
 
 def _attn_decode(p, x, cfg, angles, cache: KVCache, position: int):
-    q, k, v = _qkv(p, x, cfg, angles)
+    span = _span(p, cfg)
+    q, k, v = _qkv(p, x, cfg, angles, span)
     cache = cache.update(k, v, position)
-    out = gqa_attention(q, cache.k, cache.v, cache.decode_mask())
-    return _out_proj(p, out, cfg), cache
+    mask = cache.decode_mask()
+    out = _attend(lambda q, k, v: gqa_attention(q, k, v, mask),
+                  q, cache.k, cache.v, span, _group(cfg))
+    return _out_proj(p, out, cfg, span), cache
 
 
 def _attn_decode_paged(p, x, cfg, angles, cache: PagedKV, ctx):
@@ -281,7 +348,13 @@ def _attn_decode_paged(p, x, cfg, angles, cache: PagedKV, ctx):
     axes, at the whole step's write index ``ctx["paged_write_index"]``),
     then attends over its own rows, so a row that moves to another data
     slice between steps finds its blocks current."""
-    qkv = _qkv(p, x, cfg, angles)
+    span = _span(p, cfg)
+    qkv = _qkv(p, x, cfg, angles, span)
+
+    def attend(q, k, v, mask):
+        return _attend(lambda q, k, v: gqa_attention(q, k, v, mask),
+                       q, k, v, span, _group(cfg))
+
     if ctx.get("paged_impl", "dense") == "kernel":
         out, cache = _paged_decode_kernel(qkv, cache, ctx)
     elif rows_split():
@@ -290,12 +363,12 @@ def _attn_decode_paged(p, x, cfg, angles, cache: PagedKV, ctx):
                     *ctx["paged_write_index"])
         out = paged_attend_dense(q_new, cache, ctx["paged_tables"],
                                  ctx["paged_positions"],
-                                 ctx["paged_block_size"])
+                                 ctx["paged_block_size"], attend)
     else:
         out, cache = paged_decode_attention_dense(
             qkv, cache, ctx["paged_tables"], ctx["paged_positions"],
-            ctx["paged_block_size"])
-    return pin_rows(_out_proj(p, out, cfg)), cache
+            ctx["paged_block_size"], attend)
+    return pin_rows(_out_proj(p, out, cfg, span)), cache
 
 
 def _paged_decode_kernel(qkv, paged: PagedKV, ctx):
@@ -330,8 +403,9 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
         raise NotImplementedError(
             f"prefill_cont requires attn_impl 'einsum' or 'bf16', got "
             f"{cfg.attn_impl!r}")
-    fn = gqa_attention_bf16 if cfg.attn_impl == "bf16" else gqa_attention
-    q, k, v = _qkv(p, x, cfg, angles)
+    att = gqa_attention_bf16 if cfg.attn_impl == "bf16" else gqa_attention
+    span = _span(p, cfg)
+    q, k, v = _qkv(p, x, cfg, angles, span)
     b, s = x.shape[:2]
     start = cache.k.shape[1]
     kc, vc = cache.k, cache.v
@@ -341,25 +415,29 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
     k_all = torch.cat([kc, k], dim=1)
     v_all = torch.cat([vc, v], dim=1)
     mask = causal_mask(s, start + s, 0, q_offset=start, device=x.device)
-    out = fn(q, k_all, v_all, mask)
-    return (_out_proj(p, out, cfg),
+    out = _attend(lambda q, k, v: att(q, k, v, mask), q, k_all, v_all, span,
+                  _group(cfg))
+    return (_out_proj(p, out, cfg, span),
             KVCache.from_prefill(k_all, v_all, 0, reserve))
 
 
 def _cross_attn(p, x, cfg, enc_kv=None, enc_out=None):
     """Cross-attention: q from x (no rope), k / v from the encoder's output,
-    or the pair cached after prefill; fp32 attention under a full mask."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["x_wq"]).reshape(b, s, h, hd)
+    or the pair cached after prefill (the span's kv heads); fp32 attention
+    under a full mask."""
+    s = x.shape[1]
+    kvw, hd = cfg.n_kv_heads * cfg.hd, cfg.hd
+    span = _span(p, cfg, "x_")
+    q = _heads(x @ p["x_wq"], cfg.n_heads * hd, span.h0, span.nq, hd)
     if enc_kv is None:
-        se = enc_out.shape[1]
-        k = (enc_out @ p["x_wk"]).reshape(b, se, kv, hd)
-        v = (enc_out @ p["x_wv"]).reshape(b, se, kv, hd)
+        k = _heads(enc_out @ p["x_wk"], kvw, span.kv0, span.nkv, hd)
+        v = _heads(enc_out @ p["x_wv"], kvw, span.kv0, span.nkv, hd)
     else:
         k, v = enc_kv
-    out = gqa_attention(q, k, v, full_mask(s, k.shape[1], device=x.device))
-    return out.reshape(b, s, -1) @ p["x_wo"], (k, v)
+    mask = full_mask(s, k.shape[1], device=x.device)
+    out = _attend(lambda q, k, v: gqa_attention(q, k, v, mask), q, k, v, span,
+                  _group(cfg))
+    return _out_proj(p, out, cfg, span, "x_"), (k, v)
 
 
 # ------------------------------------------------------------------- apply
@@ -405,15 +483,17 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
         if mode == "decode":
             kvc, sst = cache
             a, kvc = _attn_decode(p, h, cfg, angles, kvc, ctx["position"])
-            s_out, sst = ssm_step(p["ssm"], h, sst)
+            s_out, sst = ssm_step(p["ssm"], h, sst, d_inner=cfg.d_inner)
             new_cache = (kvc, sst)
         else:
             a, (k, v) = _attn_seq(p, h, cfg, angles, window)
             if mode == "prefill":
-                s_out, sst = ssm_prefill_state(p["ssm"], h, chunk=cfg.scan_chunk)
+                s_out, sst = ssm_prefill_state(p["ssm"], h, chunk=cfg.scan_chunk,
+                                               d_inner=cfg.d_inner)
                 new_cache = (KVCache.from_prefill(k, v, window, reserve), sst)
             else:
-                s_out, _ = ssm_sequence(p["ssm"], h, chunk=cfg.scan_chunk)
+                s_out, _ = ssm_sequence(p["ssm"], h, chunk=cfg.scan_chunk,
+                                        d_inner=cfg.d_inner)
         fused = 0.5 * (rms_norm(a, p["fuse_a"], eps) + rms_norm(s_out, p["fuse_s"], eps))
         x = x + rs * fused
         h = rms_norm(x, p["norm2"], eps)

@@ -28,6 +28,57 @@ def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
+# ------------------------------------------------------- tensor-parallel heads
+class HeadSpan(NamedTuple):
+    """The heads one process computes under a ``model`` cut that may fall
+    inside a head.  Its output projection holds rows ``[lo, lo + cols)`` of
+    the flattened ``n_heads * hd`` (``param_specs`` cuts them in equal
+    parts); it computes q heads ``[h0, h0 + nq)``, the whole heads those
+    rows read, over kv heads ``[kv0, kv0 + nkv)``, and keeps columns
+    ``[col0, col0 + cols)`` of their flattened output."""
+    h0: int
+    nq: int
+    kv0: int
+    nkv: int
+    col0: int
+    cols: int
+
+    def grouped(self, group: int) -> bool:
+        """The q heads are whole kv groups, so GQA's grouping holds as it
+        is."""
+        return self.h0 == self.kv0 * group and self.nq == self.nkv * group
+
+
+def head_span(n_heads: int, n_kv: int, hd: int, rows: int, rank: int) -> HeadSpan:
+    """:class:`HeadSpan` of the process at ``rank`` on the model axis, whose
+    output projection holds ``rows`` of the ``n_heads * hd`` input rows (all
+    of them when the cut does not divide)."""
+    full = n_heads * hd
+    if rows == full:
+        return HeadSpan(0, n_heads, 0, n_kv, 0, full)
+    lo = rank * rows
+    h0, h1 = lo // hd, -(-(lo + rows) // hd)
+    group = n_heads // n_kv
+    kv0, kv1 = h0 // group, -(-h1 // group)
+    return HeadSpan(h0, h1 - h0, kv0, kv1 - kv0, lo - h0 * hd, rows)
+
+
+def cut_rows(full: int, model: int) -> int:
+    """The rows of a ``full``-row leaf one process holds when ``param_specs``
+    cuts it over a model axis of ``model`` (whole when it does not divide)."""
+    return full // model if full % model == 0 else full
+
+
+def rolled(x) -> bool:
+    """Whether a recurrence over ``x`` runs one trip of its loop and repeats
+    that trip's output for the others: on ``meta`` tensors, the dry-run's
+    abstract model, where every trip has the same ops on the same shapes.
+    The reference's cost analysis counts a rolled scan's body once the same
+    way, and ``launch.roofline.inner_scan_flop_correction`` adds the other
+    trips' matmul FLOPs."""
+    return x.device.type == "meta"
+
+
 # --------------------------------------------------------------- init helpers
 def stacked_dense_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
                        dtype, device, scale: float = 1.0):
@@ -250,7 +301,7 @@ def paged_write(paged: PagedKV, k_new, v_new, blk, slot) -> None:
 
 
 def paged_decode_attention_dense(q, paged: PagedKV, tables, positions,
-                                 block_size: int):
+                                 block_size: int, attend=None):
     """Gather-then-attend paged decode: one query token per row against the
     row's block run.  Writes the step's K/V into ``tables[row, pos // bs]``
     slot ``pos % bs`` (in place), then :func:`paged_attend_dense`.
@@ -260,15 +311,16 @@ def paged_decode_attention_dense(q, paged: PagedKV, tables, positions,
     q_new, k_new, v_new = q
     paged_write(paged, k_new, v_new,
                 *paged_write_index(tables, positions, block_size))
-    return paged_attend_dense(q_new, paged, tables, positions, block_size), paged
+    return paged_attend_dense(q_new, paged, tables, positions, block_size,
+                              attend), paged
 
 
 def paged_attend_dense(q_new, paged: PagedKV, tables, positions,
-                       block_size: int):
+                       block_size: int, attend=None):
     """The attention half of :func:`paged_decode_attention_dense`: gathers
     each row's run into a dense (B, MAXB*bs) view and runs the same
-    :func:`gqa_attention` as the dense ring path, positions ``> pos``
-    masked."""
+    :func:`gqa_attention` as the dense ring path (or ``attend``, of the
+    same signature), positions ``> pos`` masked."""
     b = q_new.shape[0]
     maxb = tables.shape[1]
     flat = tables.reshape(-1)
@@ -278,7 +330,7 @@ def paged_attend_dense(q_new, paged: PagedKV, tables, positions,
                                                *paged.v.shape[2:])
     valid = (torch.arange(maxb * block_size, dtype=torch.int32,
                           device=tables.device)[None, :] <= positions[:, None])
-    return gqa_attention(q_new, kg, vg, valid[:, None, None, None, :])
+    return (attend or gqa_attention)(q_new, kg, vg, valid[:, None, None, None, :])
 
 
 # -------------------------------------------------------------------- SwiGLU

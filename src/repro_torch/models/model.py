@@ -25,9 +25,11 @@ over ``model``, with ``fsdp`` also over the data axes, gathered back per
 stack at use, as the reference's GSPMD gathers per stack).  Run it under the
 engine's ``distributed.context.shard_context``: the vocab-parallel embedding
 is a masked local lookup summed over ``model``, the vocab-split logits are
-gathered over it, and the blocks sum their row-parallel products
-(``blocks.py``).  :func:`check_tensor_parallel` says which configs a model
-axis above 1 can take.
+gathered over it, and the blocks make whole what a computation needs whole
+and sum their row-parallel products (``blocks.py``, ``ssm.py``,
+``xlstm.py``).  Every config takes a model axis of any size, as every
+config takes the reference's spec rules: a dim the axis does not divide
+stays whole.  The encoder's stacks are cut as the decoder's.
 
 Batch dict keys: ``tokens`` (B, S) integer ids; ``embeds`` (B, S, D)
 precomputed frontend embeddings, used instead of tokens; ``enc_embeds``
@@ -57,32 +59,6 @@ from .layers import dtype_of, rms_norm, rope_angles
 
 NESTED = ("ffn", "moe", "ssm")
 LOSS_CHUNK = 128          # the reference's sequence chunk of the loss
-TP_KINDS = ("attn", "moe", "moe_swa")
-
-
-def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
-    """A model axis of ``model`` > 1 splits whole heads (the reference's
-    GSPMD may split a head's hd across shards; eager per-shard attention
-    cannot) of token-input decoder stacks of kinds ``attn``, ``moe`` and
-    ``moe_swa``.  Every config runs with a model axis of 1."""
-    if model == 1:
-        return
-    kinds = sorted({k for k, _ in tuple(cfg.pattern) + tuple(cfg.enc_pattern)}
-                   - set(TP_KINDS))
-    if kinds or cfg.enc_pattern or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model axis {model}) covers "
-            f"token-input decoder stacks of kinds {', '.join(TP_KINDS)}; "
-            f"kinds {kinds}, input {cfg.input_mode!r} and encoders come with "
-            f"a later slice")
-    if cfg.n_heads % model or cfg.n_kv_heads % model:
-        raise ValueError(
-            f"{cfg.name}: model axis {model} must divide n_heads "
-            f"{cfg.n_heads} and n_kv_heads {cfg.n_kv_heads} (whole heads per "
-            f"shard)")
-    if any(k in ("moe", "moe_swa") for k, _ in cfg.pattern) and cfg.d_ff % model:
-        raise ValueError(f"{cfg.name}: model axis {model} must divide the "
-                         f"experts' d_ff {cfg.d_ff}")
 
 
 def _flatten(stack: dict) -> dict:
@@ -178,7 +154,6 @@ class LM(nn.Module):
         ``param_specs`` (a leaf replicated everywhere is shared, not
         copied).  Leaves the plan's ``fsdp`` splits over the data axes are
         gathered back per stack when a forward reads them."""
-        check_tensor_parallel(self.cfg, axis_size(mesh, MODEL))
         tree = self.param_tree()
         specs = param_specs(tree, mesh, plan or ShardingPlan())
         lm = LM.from_tree(self.cfg, local_shard(tree, specs, mesh))
@@ -245,11 +220,16 @@ class LM(nn.Module):
         return self._embed_tokens(batch["tokens"])
 
     def _embed_tokens(self, tokens) -> torch.Tensor:
-        """Token embeddings times ``embed_scale``.  A vocab-split table
-        (this process holds rows ``[r*V/m, (r+1)*V/m)``) looks up the ids it
-        holds, zeros the rest and sums over ``model``, an exact sum since one
-        process contributes each row; a d_model-split table gathers its
-        columns."""
+        """Token embeddings times ``embed_scale``."""
+        return self.embed_rows(tokens) * self.cfg.embed_scale
+
+    def embed_rows(self, tokens) -> torch.Tensor:
+        """The embedding table's rows of ``tokens``, whole (the stub
+        frontends' lookup, as the reference's ``jnp.take`` of the table).
+        A vocab-split table (this process holds rows ``[r*V/m, (r+1)*V/m)``)
+        looks up the ids it holds, zeros the rest and sums over ``model``, an
+        exact sum since one process contributes each row; a d_model-split
+        table gathers its columns."""
         cfg = self.cfg
         table = self.embed
         v_loc, d_loc = table.shape
@@ -260,8 +240,8 @@ class LM(nn.Module):
             x = table[ids.clamp(0, v_loc - 1)]
             x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
-            return model_sum(x * cfg.embed_scale)
-        x = table[ids] * cfg.embed_scale
+            return model_sum(x)
+        x = table[ids]
         return model_gather(x, -1) if d_loc != cfg.d_model else x
 
     def _head_product(self, h) -> torch.Tensor:
@@ -384,11 +364,18 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- serving
     def init_caches(self, batch_size: int, cache_len: int, enc_len: int = 0):
+        """Empty decode caches; on a sharded LM this process's part, as its
+        layers compute them (its kv heads, recurrent heads and SSM
+        channels; ``batch_size`` its rows)."""
         cfg = self.cfg
+        model, rank = 1, 0
+        if self._mesh is not None:
+            model = axis_size(self._mesh, MODEL)
+            rank = int(self._mesh.get_local_rank(MODEL))
         caches = []
         for kind, n in cfg.pattern:
             one = init_block_cache(kind, cfg, batch_size, cache_len, enc_len,
-                                   self.device)
+                                   self.device, model, rank)
             caches.append(map_cache(
                 lambda leaf: leaf[None].repeat(n, *([1] * leaf.dim())), one))
         return caches

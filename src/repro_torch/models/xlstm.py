@@ -11,6 +11,18 @@ Recurrence (per head, stabiliser m):
     C_t = e^{logsig(f_t)+m_{t-1}-m_t} C_{t-1} + e^{i_t-m_t} k_t v_t^T
     n_t = e^{logsig(f_t)+m_{t-1}-m_t} n_{t-1} + e^{i_t-m_t} k_t
     h_t = o_t * (C_t^T q_t) / max(|n_t . q_t|, e^{-m_t})
+
+On a mesh (``distributed.sharding.param_specs``) the projections into the
+heads (mLSTM ``w_q`` / ``w_k`` / ``w_v`` / ``w_og``, sLSTM ``w_z`` /
+``w_o``), ``gn_scale``, the sLSTM biases and ``w_out``'s rows are cut over
+``model`` in equal parts of the flattened heads, which at 4 heads falls
+inside a head; ``w_i`` / ``w_f`` and the recurrent ``r_*`` are whole.  A
+process runs the recurrence of the whole heads its rows of ``w_out`` read
+(``layers.head_span``), their inputs taken from the products gathered over
+``model`` where they are cut; the group norm sees whole heads; the process
+keeps its own columns, scales them by its ``gn_scale`` (and gates them by
+its columns of ``w_og``), and its ``w_out`` product is summed over
+``model``.  Its state holds those heads.
 """
 from __future__ import annotations
 
@@ -20,7 +32,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import stacked_dense_init
+from ..distributed.context import (model_column_range, model_rank,
+                                   model_row_sum)
+from .layers import HeadSpan, head_span, rolled, stacked_dense_init
 from .ssm import pick_chunk
 
 NEG = -1e30
@@ -61,25 +75,49 @@ def init_mlstm_params(gen: torch.Generator, n: int, d_model: int, n_heads: int,
     }
 
 
-def _mlstm_qkvif(p, x, n_heads: int, qk: int, hv: int):
+def _span(p, n_heads: int, hv: int) -> HeadSpan:
+    """The heads this process runs: those its rows of ``w_out`` read."""
+    return head_span(n_heads, n_heads, hv, p["w_out"].shape[-2], model_rank())
+
+
+def _cols(x, w, n_heads: int, dim: int, span: HeadSpan):
+    """The span's heads of ``x @ w`` (heads of ``dim`` columns), flat: (...,
+    span.nq * dim)."""
+    return model_column_range(x @ w, n_heads * dim, span.h0 * dim, span.nq * dim)
+
+
+def _mlstm_qkvif(p, x, n_heads: int, qk: int, hv: int, span=None):
     """q (pre-scaled by 1/sqrt(qk)), k (B, H, S, qk); v (B, H, S, hv) in
-    x's dtype; the gates i, f (B, H, S) in fp32."""
+    x's dtype; the gates i, f (B, H, S) in fp32; H the span's heads."""
     b, s, _ = x.shape
-    q = (x @ p["w_q"]).reshape(b, s, n_heads, qk).transpose(1, 2)
-    k = (x @ p["w_k"]).reshape(b, s, n_heads, qk).transpose(1, 2)
-    v = (x @ p["w_v"]).reshape(b, s, n_heads, hv).transpose(1, 2)
-    i_g = (x @ p["w_i"]).float().transpose(1, 2)
-    f_g = (x @ p["w_f"]).float().transpose(1, 2)
+    span = span or _span(p, n_heads, hv)
+    nh = span.nq
+
+    def heads(name, dim):
+        return _cols(x, p[name], n_heads, dim, span).reshape(b, s, nh, dim).transpose(1, 2)
+
+    q, k, v = heads("w_q", qk), heads("w_k", qk), heads("w_v", hv)
+    i_g = _cols(x, p["w_i"], n_heads, 1, span).float().transpose(1, 2)
+    f_g = _cols(x, p["w_f"], n_heads, 1, span).float().transpose(1, 2)
     return q / math.sqrt(qk), k, v, i_g, f_g
 
 
-def _group_norm(h, scale, n_heads: int):
-    """Per-head RMS norm over the value dim; h (B, S, H*hv)."""
+def _group_norm(h, scale, n_heads: int, span=None):
+    """Per-head RMS norm over the value dim; h (B, S, H*hv), then the
+    span's columns of it (``[col0, col0 + cols)``) times ``1 + scale``."""
     b, s, dh = h.shape
     hf = h.reshape(b, s, n_heads, dh // n_heads).float()
     var = hf.square().mean(dim=-1, keepdim=True)
-    hf = hf * torch.rsqrt(var + 1e-6)
-    return hf.reshape(b, s, dh) * (1.0 + scale)
+    hf = (hf * torch.rsqrt(var + 1e-6)).reshape(b, s, dh)
+    if span is not None and span.cols != dh:
+        hf = hf.narrow(-1, span.col0, span.cols)
+    return hf * (1.0 + scale)
+
+
+def _out(p, h, btype, full: int):
+    """``h @ w_out``, summed over ``model`` where ``w_out``'s rows are a
+    cut of ``full``."""
+    return model_row_sum(h.to(btype) @ p["w_out"], p["w_out"].shape[-2], full)
 
 
 def mlstm_chunkwise(q, k, v, i_g, f_g, chunk: int, state: MLSTMState):
@@ -124,6 +162,9 @@ def mlstm_chunkwise(q, k, v, i_g, f_g, chunk: int, state: MLSTMState):
         n_prev = (decay[..., None] * n_prev
                   + torch.einsum("bhs,bhsk->bhk", src_w, kk))
         m_prev = m_new
+        if rolled(q):
+            hs *= s // t
+            break
     return torch.cat(hs, dim=2), MLSTMState(c_prev, n_prev, m_prev)
 
 
@@ -132,21 +173,23 @@ def mlstm_sequence(p, x, n_heads: int, qk: int, hv: int, chunk: int = 128,
     """x: (B, S, D) -> (y, final MLSTMState).  Chunk snaps to a divisor of S."""
     btype = x.dtype
     b, s, _ = x.shape
-    q, k, v, i_g, f_g = _mlstm_qkvif(p, x, n_heads, qk, hv)
+    span = _span(p, n_heads, hv)
+    q, k, v, i_g, f_g = _mlstm_qkvif(p, x, n_heads, qk, hv, span)
     if state is None:
-        state = init_mlstm_state(b, n_heads, qk, hv, x.device)
+        state = init_mlstm_state(b, span.nq, qk, hv, x.device)
     h, st = mlstm_chunkwise(q, k, v, i_g, f_g, chunk, state)
-    h = h.transpose(1, 2).reshape(b, s, n_heads * hv)
+    h = h.transpose(1, 2).reshape(b, s, span.nq * hv)
     o = torch.sigmoid((x @ p["w_og"]).float())
-    h = _group_norm(h, p["gn_scale"], n_heads) * o
-    return h.to(btype) @ p["w_out"], st
+    h = _group_norm(h, p["gn_scale"], span.nq, span) * o
+    return _out(p, h, btype, n_heads * hv), st
 
 
 def mlstm_step(p, x, n_heads: int, qk: int, hv: int, state: MLSTMState):
     """x: (B, 1, D) -> (y, state).  The per-step recurrence."""
     btype = x.dtype
     b = x.shape[0]
-    q, k, v, i_g, f_g = _mlstm_qkvif(p, x, n_heads, qk, hv)
+    span = _span(p, n_heads, hv)
+    q, k, v, i_g, f_g = _mlstm_qkvif(p, x, n_heads, qk, hv, span)
     qq, kk, vv = (a[:, :, 0].float() for a in (q, k, v))      # (B,H,dim)
     ii, ff = i_g[:, :, 0], f_g[:, :, 0]                        # (B,H)
     lf = F.logsigmoid(ff)
@@ -159,10 +202,10 @@ def mlstm_step(p, x, n_heads: int, qk: int, hv: int, state: MLSTMState):
     num = torch.einsum("bhkv,bhk->bhv", c_new, qq)
     den = torch.maximum(torch.einsum("bhk,bhk->bh", n_new, qq).abs(),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(b, 1, n_heads * hv)
+    h = (num / den[..., None]).reshape(b, 1, span.nq * hv)
     o = torch.sigmoid((x @ p["w_og"]).float())
-    h = _group_norm(h, p["gn_scale"], n_heads) * o
-    return h.to(btype) @ p["w_out"], MLSTMState(c_new, n_new, m_new)
+    h = _group_norm(h, p["gn_scale"], span.nq, span) * o
+    return _out(p, h, btype, n_heads * hv), MLSTMState(c_new, n_new, m_new)
 
 
 def init_mlstm_state(batch: int, n_heads: int, qk: int, hv: int,
@@ -191,12 +234,30 @@ def init_slstm_params(gen: torch.Generator, n: int, d_model: int, n_heads: int,
     return p
 
 
-def _slstm_cell(p, xw, state: SLSTMState, n_heads: int, hd: int):
-    """xw: dict gate -> (B, H, hd) input contributions (x @ w_g)."""
+def _slstm_weights(p, n_heads: int, hd: int, span: HeadSpan):
+    """The span's recurrent weights ``r_*`` (H, hd, hd) and biases (H, hd),
+    gate by gate; H the span's heads."""
+    r = {g: p[f"r_{g}"] for g in "zifo"}
+    if span.nq != n_heads:
+        r = {g: w[span.h0:span.h0 + span.nq] for g, w in r.items()}
+    bias = {g: model_column_range(p[f"b_{g}"], n_heads * hd, span.h0 * hd,
+                                  span.nq * hd).reshape(span.nq, hd)
+            for g in "zifo"}
+    return r, bias
+
+
+def _slstm_in(p, x, n_heads: int, hd: int, span: HeadSpan):
+    """gate -> (..., H, hd) fp32 input contributions (x @ w_g) of the
+    span's heads."""
+    return {g: _cols(x, p[f"w_{g}"], n_heads, hd, span).float().reshape(
+        *x.shape[:-1], span.nq, hd) for g in "zifo"}
+
+
+def _slstm_cell(r, bias, xw, state: SLSTMState):
+    """xw: dict gate -> (B, H, hd) input contributions (x @ w_g); ``r`` and
+    ``bias`` from :func:`_slstm_weights`."""
     def rec(g):
-        r = p[f"r_{g}"]
-        return torch.einsum("bhd,hde->bhe", state.h.to(r.dtype), r).float()
-    bias = {g: p[f"b_{g}"].reshape(n_heads, hd) for g in "zifo"}
+        return torch.einsum("bhd,hde->bhe", state.h.to(r[g].dtype), r[g]).float()
     z = torch.tanh(xw["z"] + rec("z") + bias["z"])
     i_t = xw["i"] + rec("i") + bias["i"]
     f_t = xw["f"] + rec("f") + bias["f"]
@@ -214,27 +275,32 @@ def _slstm_cell(p, xw, state: SLSTMState, n_heads: int, hd: int):
 def slstm_sequence(p, x, n_heads: int, hd: int, state: SLSTMState | None = None):
     btype = x.dtype
     b, s, _ = x.shape
+    span = _span(p, n_heads, hd)
     if state is None:
-        state = init_slstm_state(b, n_heads, hd, x.device)
-    xw = {g: (x @ p[f"w_{g}"]).float().reshape(b, s, n_heads, hd) for g in "zifo"}
+        state = init_slstm_state(b, span.nq, hd, x.device)
+    xw = _slstm_in(p, x, n_heads, hd, span)
+    r, bias = _slstm_weights(p, n_heads, hd, span)
     hs = []
     for t in range(s):
-        state = _slstm_cell(p, {g: xw[g][:, t] for g in "zifo"}, state,
-                            n_heads, hd)
+        state = _slstm_cell(r, bias, {g: xw[g][:, t] for g in "zifo"}, state)
         hs.append(state.h)
-    h = torch.stack(hs, dim=1).reshape(b, s, n_heads * hd)
-    h = _group_norm(h, p["gn_scale"], n_heads)
-    return h.to(btype) @ p["w_out"], state
+        if rolled(x):
+            hs *= s
+            break
+    h = torch.stack(hs, dim=1).reshape(b, s, span.nq * hd)
+    h = _group_norm(h, p["gn_scale"], span.nq, span)
+    return _out(p, h, btype, n_heads * hd), state
 
 
 def slstm_step(p, x, n_heads: int, hd: int, state: SLSTMState):
     btype = x.dtype
     b = x.shape[0]
-    xw = {g: (x[:, 0] @ p[f"w_{g}"]).float().reshape(b, n_heads, hd)
-          for g in "zifo"}
-    st = _slstm_cell(p, xw, state, n_heads, hd)
-    h = _group_norm(st.h.reshape(b, 1, n_heads * hd), p["gn_scale"], n_heads)
-    return h.to(btype) @ p["w_out"], st
+    span = _span(p, n_heads, hd)
+    xw = _slstm_in(p, x[:, 0], n_heads, hd, span)
+    r, bias = _slstm_weights(p, n_heads, hd, span)
+    st = _slstm_cell(r, bias, xw, state)
+    h = _group_norm(st.h.reshape(b, 1, span.nq * hd), p["gn_scale"], span.nq, span)
+    return _out(p, h, btype, n_heads * hd), st
 
 
 def init_slstm_state(batch: int, n_heads: int, hd: int,

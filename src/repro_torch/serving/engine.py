@@ -276,7 +276,7 @@ class ServeEngine:
         self.paged_enabled = pool_blocks > 0 and self._supports_prefix_cache()
         self.pool: Optional[KVBlockPool] = (
             KVBlockPool(lm, pool_blocks, block_size, device=self.device,
-                        mesh=mesh, plan=self.plan)
+                        mesh=mesh)
             if self.paged_enabled else None)
         self._paged_rows: dict[int, _PagedRow] = {}
         self._paged_finished: dict[int, str] = {}
@@ -402,8 +402,8 @@ class ServeEngine:
         whether the rows were cut).  Stacked KVCache leaves carry rows
         second; pos leaves have none."""
         toks, split = self._put_rows(tokens, count=True)
-        batch = self._make_batch(toks)
         with self._sharded(split):
+            batch = self._make_batch(toks)
             if caches is None:
                 logits, out = fn(batch)
             else:
@@ -430,14 +430,17 @@ class ServeEngine:
 
     def _make_batch(self, tokens) -> dict:
         """The model's batch dict for ``tokens`` (a host array, or rows
-        already on the device)."""
+        already on the device), under the submission's shard context: the
+        stub frontends look the bytes up through the embedding table's split
+        (``LM.embed_rows``, no ``embed_scale``, as the reference's
+        ``jnp.take``)."""
         cfg = self.lm.cfg
         toks = tokens if isinstance(tokens, torch.Tensor) else self._put(tokens)
         if cfg.input_mode == "embeds":
             # VLM stub frontend: embed text bytes through the text table
-            return {"embeds": self.lm.embed[toks.long()]}
+            return {"embeds": self.lm.embed_rows(toks)}
         if cfg.input_mode == "encdec":
-            return {"enc_embeds": self.lm.embed[toks.long()], "tokens": toks}
+            return {"enc_embeds": self.lm.embed_rows(toks), "tokens": toks}
         return {"tokens": toks}
 
     @staticmethod

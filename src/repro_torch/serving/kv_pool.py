@@ -8,9 +8,11 @@ reference builds a new array with ``.at[].set`` and relies on buffer
 donation.  ``self.arenas`` therefore keeps its identity for the pool's
 lifetime.
 
-On a serving mesh (``mesh=`` / ``plan=``) each process holds its slice of the
-arenas under ``distributed.sharding.arena_specs``: kv-heads over ``model``,
-every other dim, the block dim above all, replicated over the data axes.  So
+On a serving mesh (``mesh=``) each process holds its slice of the
+arenas: the kv heads its layers attend (``models.blocks.kv_heads_on``: kv
+heads over ``model`` where they divide, else the heads its cut of the
+q heads reads), every other dim, the block dim above all, replicated over
+the data axes.  So
 the free list, refcounts, leases and stashes below stay host-side and
 mesh-oblivious: a block id addresses the same arena slice on every process,
 and every process runs the same allocator decisions.  Keeping the block dim
@@ -47,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..distributed.sharding import ShardingPlan, arena_specs, local_shape
+from ..distributed.sharding import MODEL, axis_size
+from ..models.blocks import kv_heads_on
 from ..models.layers import KVCache, PagedKV, dtype_of
 
 
@@ -58,7 +61,7 @@ class PoolExhausted(RuntimeError):
 
 class KVBlockPool:
     def __init__(self, lm, num_blocks: int, block_size: int = 16,
-                 device=None, mesh=None, plan=None):
+                 device=None, mesh=None):
         """``device=None`` means CUDA and raises without it."""
         cfg = lm.cfg
         assert num_blocks >= 2, "need at least one real block beyond dummy 0"
@@ -70,11 +73,10 @@ class KVBlockPool:
         dt = dtype_of(cfg.dtype)
         kv, hd = cfg.n_kv_heads, cfg.hd
 
+        if mesh is not None:              # this process's kv heads
+            kv = kv_heads_on(cfg, axis_size(mesh, MODEL),
+                             int(mesh.get_local_rank(MODEL)))
         shapes = [(n, num_blocks, block_size, kv, hd) for _kind, n in cfg.pattern]
-        if mesh is not None:              # this process's slice: KV over model
-            specs = arena_specs([torch.empty(s, device="meta") for s in shapes],
-                                mesh, plan or ShardingPlan())
-            shapes = [local_shape(s, sp, mesh) for s, sp in zip(shapes, specs)]
         self.arenas = [PagedKV(k=torch.zeros(s, dtype=dt, device=self.device),
                                v=torch.zeros(s, dtype=dt, device=self.device))
                        for s in shapes]

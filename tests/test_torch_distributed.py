@@ -379,14 +379,38 @@ def test_elastic_replan_builds_a_runnable_mesh():
 
 
 def test_tensor_parallel_limits_raise_by_name():
-    from repro_torch.models.model import check_tensor_parallel
-    check_tensor_parallel(get_config("llama3-8b"), 8)
-    with pytest.raises(ValueError, match="phi4-mini.*n_heads 24"):
-        check_tensor_parallel(get_config("phi4-mini-3.8b"), 16)
-    for arch in ("hymba-1.5b", "xlstm-1.3b", "seamless-m4t-medium", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            check_tensor_parallel(get_config(arch), 2)
-        check_tensor_parallel(get_config(arch), 1)
+    """Every config lays out on a model axis of any size, as the reference's
+    spec rules lay out every config (a dim the axis does not divide stays
+    whole): each process's parameters are ``param_specs``' cut, and its
+    caches hold the kv heads its layers attend.  The limit left raises by
+    name, as in the reference: the paged kernel on a sharded engine."""
+    from repro_torch.distributed.context import CountingMesh
+    from repro_torch.models.blocks import kv_heads_on
+    from repro_torch.models.layers import KVCache
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training.tree import leaves
+
+    def kv_counts(caches):
+        parts = [p for c in caches for p in (c if type(c) is tuple else (c,))]
+        return [p.k.shape[-2] for p in parts if isinstance(p, KVCache)]
+
+    for arch in list_archs():
+        cfg = get_config(arch)
+        tree = LM(cfg, device="meta").param_tree()
+        for model in (2, 8, 16):
+            mesh = CountingMesh(AbstractMesh(("data", "model"), (1, model)))
+            specs = TS.param_specs(tree, mesh)
+            local = LM(cfg, device="meta").sharded(mesh)
+            got = [tuple(t.shape) for t in leaves(local.param_tree())]
+            assert got == [TS.local_shape(t.shape, s, mesh)
+                           for t, s in zip(leaves(tree), leaves(specs))], (arch, model)
+            kv = kv_counts(local.init_caches(1, 8, enc_len=4))
+            assert kv == [kv_heads_on(cfg, model, 0)] * len(kv), (arch, model, kv)
+            assert 0 < kv_heads_on(cfg, model, model - 1) <= cfg.n_kv_heads
+    lm = LM(get_reduced("llama3-8b"), device="cpu")
+    with pytest.raises(ValueError, match="paged_kernel is not supported on a sharded"):
+        ServeEngine(lm, device="cpu", mesh=make_local_mesh(1, 1, device="cpu"),
+                    paged_kernel=True)
 
 
 # ------------------------------------------------------- multi-rank cases

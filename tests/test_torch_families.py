@@ -190,10 +190,10 @@ def test_unported_moe_paths_raise_by_name():
     # router_aux_loss came with the training slice (held against the
     # reference in test_torch_training.py) and the sharded FFN with the
     # distributed slice (tests/test_torch_distributed.py): on a 1x1 mesh it
-    # is the global dispatch.  What is left raises by name: tensor
-    # parallelism over a kind other than attn / moe / moe_swa
+    # is the global dispatch.  Tensor parallelism takes every kind.  What is
+    # left raises by name, as in the reference: the paged and prefix-KV
+    # modes of a MoE block, whose capacity is ranked across the batch
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.model import check_tensor_parallel
     cfg = get_reduced("mixtral-8x7b")
     p = TB.init_block(torch.Generator().manual_seed(0), "moe", cfg, "cpu")["moe"]
     x = torch.ones((1, 4, cfg.d_model), dtype=p["router"].dtype)
@@ -202,8 +202,10 @@ def test_unported_moe_paths_raise_by_name():
     mesh = make_local_mesh(1, 1, device="cpu")
     assert torch.equal(TMOE.moe_ffn_sharded(p, x, cfg.moe, mesh, ("data",), "model"),
                        TMOE.moe_ffn(p, x, cfg.moe))
-    with pytest.raises(NotImplementedError, match="hymba.*later slice"):
-        check_tensor_parallel(get_reduced("hymba-1.5b"), 2)
+    block = TB.init_block(torch.Generator().manual_seed(0), "moe", cfg, "cpu")
+    for mode in ("prefill_cont", "decode_paged"):
+        with pytest.raises(NotImplementedError, match=f"{mode}.*'moe'"):
+            TB.apply_block("moe", cfg, block, x, {}, None, mode)
 
 
 @torch.inference_mode()

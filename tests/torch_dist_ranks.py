@@ -345,3 +345,108 @@ def train_case(rank, world, data, model, runs, weights, batches, ckpt_dir=None,
         i = [path_str(p) for p, _ in flatten_with_path(state["params"])].index("stacks/0/wo")
         out["grads"] = (raw[i].numpy(), reduced[i].numpy(), tuple(tr.pspecs[i]))
     return out if rank == 0 else {k: v for k, v in out.items() if k == "grads"}
+
+
+# ------------------------------------ tensor parallelism for every arch
+# arch -> the config overrides of its fp32 case: a model axis of 2 cuts
+# inside a q head and inside a kv head (3 heads of 16), for the xLSTM inside
+# a recurrent head; seamless keeps its heads and takes an odd vocab (the
+# d_model-split table its stub frontend reads)
+TP_ARCHS = {
+    "minicpm-2b": dict(n_heads=3, n_kv_heads=3, head_dim=16),
+    "qwen2-vl-7b": dict(n_heads=3, n_kv_heads=1, head_dim=16),
+    "hymba-1.5b": dict(n_heads=3, n_kv_heads=1, head_dim=16),
+    "xlstm-1.3b": dict(n_heads=3, n_kv_heads=3, head_dim=16),
+    "seamless-m4t-medium": dict(vocab_size=515),
+}
+
+
+def tp_arch_cfg(arch, dtype="float32"):
+    """The fp32 case's config of ``arch`` (``TP_ARCHS``), or the stock
+    reduced config in ``dtype``."""
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced(arch)
+    if dtype != "float32":
+        return dataclasses.replace(cfg, dtype=dtype)
+    return dataclasses.replace(cfg, dtype="float32", **TP_ARCHS[arch])
+
+
+def tp_batch(cfg, seed=7):
+    """One training batch (numpy) of the arch's input mode: tokens, plus
+    embeddings or the encoder's input."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, 256, (4, 16)).astype(np.int32)}
+    if cfg.input_mode == "embeds":
+        out["embeds"] = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    if cfg.input_mode == "encdec":
+        out["enc_embeds"] = rng.standard_normal((4, 8, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def router_choices(lm, eng):
+    """Probe logits of ``eng`` and, for every router call of the
+    submission, (router logits, top-k experts)."""
+    import repro_torch.models.moe as M
+    calls, route = [], M.route
+
+    def record(logits, k):
+        out = route(logits, k)
+        calls.append((logits.float().numpy().copy(), out[0].numpy().copy()))
+        return out
+
+    M.route = record
+    try:
+        logits = eng.submit_probes(PROBES)
+    finally:
+        M.route = route
+    return np.asarray(logits), calls
+
+
+def tp_arch_case(rank, world, data, model, weights, plan):
+    """Every arch of ``TP_ARCHS`` on a ``data`` x ``model`` mesh: probe
+    logits and a ``generate`` of the sharded engine and the unsharded one,
+    both in fp32 from the reference's weights (``weights``: arch -> pickled
+    numpy tree) and in the stock bf16 config from a seed; one
+    ``Trainer(mesh=, plan=ShardingPlan(**plan))`` step from the reference's
+    weights (rank 0 keeps the history and the gathered parameters).  Then
+    bf16 Mixtral's router choices in the sharded and the unsharded
+    engine."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.distributed import ShardingPlan
+    from repro_torch.distributed.context import gather_tree
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.training import Trainer
+    from repro_torch.training.tree import flatten_with_path, path_str
+    mesh = make_local_mesh(data, model, device="cpu")
+    prompts, limits = [p for p, _ in GEN], [n for _, n in GEN]
+    out = {}
+    for arch, path in weights.items():
+        cfg = tp_arch_cfg(arch)
+        with open(path, "rb") as f:
+            params = pickle.load(f)
+        lm = from_jax_params(params, cfg, device="cpu")
+        base, eng = engine(lm), engine(lm, mesh=mesh)
+        out[arch, "fp32"] = (np.asarray(base.submit_probes(PROBES)),
+                             np.asarray(eng.submit_probes(PROBES)))
+        out[arch, "generate"] = (base.generate(prompts, max_new_per=limits),
+                                 eng.generate(prompts, max_new_per=limits))
+        out[arch, "shapes"] = {path_str(p): tuple(t.shape) for p, t in
+                               flatten_with_path(eng.lm.param_tree())}
+        lm16 = LM(tp_arch_cfg(arch, "bfloat16"), device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+        out[arch, "bf16"] = (np.asarray(engine(lm16).submit_probes(PROBES)),
+                             np.asarray(engine(lm16, mesh=mesh).submit_probes(PROBES)))
+        tr = Trainer(from_jax_params(params, cfg, device="cpu"), train_cfg(1, 1, False),
+                     mesh=mesh, plan=ShardingPlan(**plan))
+        state = tr.init_state()
+        batch = {k: torch.from_numpy(v) for k, v in tp_batch(cfg).items()}
+        hist = tr.run(state, iter([batch]), resume=False)["history"]
+        tree = gather_tree(state["params"], tr.state_specs(state)["params"], mesh)
+        out[arch, "train"] = ([(r["loss"], r["grad_norm"]) for r in hist],
+                              [{path_str(p): t.detach().numpy().copy()
+                                for p, t in flatten_with_path(tree)}])
+    lm = seeded("mixtral-8x7b", "bfloat16")
+    out["mixtral-bf16"] = (router_choices(lm, engine(lm)),
+                           router_choices(lm, engine(lm, mesh=mesh)))
+    return out if rank == 0 else {k: v for k, v in out.items() if "train" not in k}

@@ -8,10 +8,14 @@
     python3 chip_smoke.py --phases kernels          # build and check the kernels only
     python3 chip_smoke.py --phases mesh             # the 1x1 mesh: sharded == unsharded
     python3 chip_smoke.py --phases launch           # dry-run grid, roofline vs card, pricing
+    python3 chip_smoke.py --phases analysis         # the port's linter, on a machine without JAX
 
 Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
 (one ``nvcc`` per source, all started together), then:
 
+- ``analysis``: the port's invariant linter (``repro_torch.analysis``) over
+  ``src/repro_torch``, ``tests`` and this script: no finding, no JAX module
+  loaded;
 - ``order_by`` (the main path): LLM ORDER BY queries through
   ``llm_order_by_many`` and ``llm_order_by`` -> access paths -> ``ModelOracle``
   -> ``BatchScheduler`` -> ``ServeEngine(paged_kernel=True)`` at the full width
@@ -60,7 +64,10 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   ``hymba-1.5b``, ``xlstm-1.3b`` and ``seamless-m4t-medium`` at full width
   and depth in bf16, seeded, each a 1x1 sharded engine bitwise the
   unsharded one (probe logits, a ``quick`` order and ledger, a
-  ``generate``).  The sharded engine decodes through the dense
+  ``generate``); ``stablelm-1.6b``'s ``LM.sharded`` under
+  ``cache_layout="seq"`` given the global batch, a prefill and 16 decode
+  steps bitwise the unsharded LM's (at one part nothing is cut).  The
+  sharded engine decodes through the dense
   paged path (the reference refuses the paged kernel on a mesh), so this
   path launches no kernel;
 - ``launch``: the launch-tooling slice.  ``launch.dryrun`` over every arch x
@@ -69,7 +76,11 @@ Builds every CUDA kernel of ``repro_torch`` from the sources in this checkout
   applicable cells fully counted (each cell of the archs a cut inside a
   head, Hymba's SSM, the xLSTM, the encoder-decoder or the VLM's embeddings
   brought to tensor parallelism last prints its per-card bytes and bound);
-  the report's tables.  Then ``stablelm-1.6b`` at full
+  every ``decode_32k`` cell again under ``cache_layout="seq"`` (32x8, and
+  llama3-8b's on 2x32x8), and for those and the ``long_500k`` cells (batch
+  1: the sequence cut over ``data``) a ``launch.cache_layout`` line, the
+  K / V bytes a card held equal to the reference's ``cache_specs`` layout's
+  where it keeps whole kv heads; the report's tables.  Then ``stablelm-1.6b`` at full
   size with phase ``order_by``'s weights on a 1x1 NCCL mesh: a price sheet
   from the grid's records (an assumed $/card-hour) drives a judged ``auto``
   query through ``ServeEngine(paged_kernel=True)``, whose cost must be its
@@ -101,6 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -116,7 +128,7 @@ from repro_torch.core.optimizer.borda import borda_matrix  # noqa: E402
 from repro_torch.core.oracles.model_oracle import ModelOracle  # noqa: E402
 from repro_torch.data import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.distributed import ShardingPlan  # noqa: E402
-from repro_torch.distributed.context import shard_context  # noqa: E402
+from repro_torch.distributed.context import CountingMesh, shard_context  # noqa: E402
 from repro_torch.distributed.sharding import cache_specs, local_shape  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import borda_count as bc  # noqa: E402
@@ -2145,6 +2157,7 @@ def phase_mesh(device, card, seed) -> dict:
     fsdp = ServeEngine(lm, mesh=mesh, plan=ShardingPlan(fsdp=True), **kw)
     assert np.array_equal(fsdp.submit_probes(probes), want)
     line("fsdp", t0, logits_equal=True)
+    mesh_seq_layout(lm, mesh, line, seed)
     launches = read_launches()                 # ---- and ends here
     del base, eng, repl, fsdp, lm
     release()
@@ -2182,6 +2195,40 @@ def phase_mesh(device, card, seed) -> dict:
     del mesh
     dist.destroy_process_group()
     return launches
+
+
+MESH_SEQ = dict(batch=2, prompt=64, reserve=16, steps=16)
+
+
+def mesh_seq_layout(lm, mesh, line, seed) -> None:
+    """``LM.sharded(mesh, ShardingPlan(cache_layout="seq"))`` given the
+    global batch, a prefill and ``MESH_SEQ["steps"]`` decode steps, bitwise
+    the unsharded LM's: at one part nothing is cut (every cache a whole
+    ``KVCache``)."""
+    t0 = time.perf_counter()
+    sharded = lm.sharded(mesh, ShardingPlan(cache_layout="seq"))
+    b, s = MESH_SEQ["batch"], MESH_SEQ["prompt"]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, lm.cfg.vocab_size, (b, s + MESH_SEQ["steps"])).astype(np.int32)).to(lm.device)
+    with torch.inference_mode():
+        want, want_c = lm.prefill({"tokens": toks[:, :s]}, reserve=MESH_SEQ["reserve"])
+        with shard_context(mesh, ("data",)):
+            got, got_c = sharded.prefill({"tokens": toks[:, :s]}, reserve=MESH_SEQ["reserve"],
+                                      global_batch=b)
+        assert all(type(c).__name__ == "KVCache" for c in got_c), [type(c) for c in got_c]
+        assert torch.equal(got, want)
+        for i in range(MESH_SEQ["steps"]):
+            tok = toks[:, s + i:s + i + 1]
+            want, want_c = lm.decode_step(want_c, tok, s + i)
+            with shard_context(mesh, ("data",)):
+                got, got_c = sharded.decode_step(got_c, tok, s + i)
+            assert torch.equal(got, want), i
+        assert all(torch.equal(a, c) for a, c in zip(leaves(got_c), leaves(want_c)))
+    line("seq_layout", t0, arch=lm.cfg.name, dtype=lm.cfg.dtype, layers=lm.cfg.decoder_layers(),
+         cache_layout="seq", batch=b, prompt=s, reserve=MESH_SEQ["reserve"],
+         decode_steps=MESH_SEQ["steps"], caches_cut=False, logits_bitwise=True,
+         caches_bitwise=True)
+    del sharded
 
 
 def mesh_arch(arch, mesh, device, line, seed) -> None:
@@ -2244,15 +2291,75 @@ TP_NEW_ARCHS = ("minicpm-2b", "qwen2-vl-7b", "hymba-1.5b", "xlstm-1.3b",
                 "seamless-m4t-medium")
 
 
-def reference_cache_bytes(arch, shape_name) -> int:
+def kv_leaf_ids(caches) -> set:
+    """The ids of a cache tree's K / V tensors: a KV cache's ``k`` and ``v``
+    (whole or a ``KVCacheSlice``) and ``xdec``'s cross pair."""
+    out = set()
+    for stack in caches:
+        for part in (stack if type(stack) is tuple else (stack,)):
+            if hasattr(part, "_fields") and "k" in part._fields:
+                out |= {id(part.k), id(part.v)}
+            elif isinstance(part, torch.Tensor) and part.dim() == 5:
+                out.add(id(part))
+    return out
+
+
+def reference_cache_bytes(arch, shape_name, plan=ShardingPlan(), multi_pod=False,
+                          kv_only=False) -> int:
     """Per-card bytes of ``arch``'s decode caches at ``shape_name`` in the
-    reference's layout on the production mesh: its ``cache_specs`` (feature
-    layout: kv heads over ``model`` where they divide, else head_dim)."""
-    mesh = make_production_mesh()
+    reference's layout on the production mesh: its ``cache_specs`` under
+    ``plan`` (feature layout: kv heads over ``model`` where they divide,
+    else head_dim; the sequence over the data axes where the batch does not
+    divide them; ``seq``: the sequence over ``model``); with ``kv_only``,
+    of the K / V leaves alone."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
     caches = cache_specs_for(get_config(arch), SHAPES[shape_name])
-    specs = cache_specs(caches, mesh)
+    specs = cache_specs(caches, mesh, plan)
+    kv = kv_leaf_ids(caches)
     return sum(math.prod(local_shape(t.shape, sp, mesh)) * t.element_size()
-               for t, sp in zip(leaves(caches), leaves(specs)))
+               for t, sp in zip(leaves(caches), leaves(specs))
+               if not kv_only or id(t) in kv)
+
+
+def port_kv_bytes(arch, shape_name, plan, multi_pod=False, cut=True) -> int:
+    """Per-card bytes of the K / V leaves of the caches the port's sharded
+    model holds in a decode cell (``launch.specs.cache_specs_for``, as
+    ``dryrun_cell`` builds them), or without the cut: the layout before
+    context-parallel caches."""
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    cmesh = CountingMesh(make_production_mesh(multi_pod=multi_pod))
+    local = LM(cfg, device="meta").sharded(cmesh, plan)
+    d = math.prod(cmesh.shape[a] for a in cmesh.axis_names if a != "model")
+    rows = shape.global_batch // d if shape.global_batch % d == 0 else shape.global_batch
+    if cut:
+        caches = cache_specs_for(cfg, shape, local, rows)
+    else:
+        cache_len = shape.seq_len // 2 if cfg.input_mode == "encdec" else shape.seq_len
+        caches = local.init_caches(rows, cache_len, enc_len=cache_len
+                                   if cfg.input_mode == "encdec" else 0)
+    kv = kv_leaf_ids(caches)
+    return sum(t.numel() * t.element_size() for t in leaves(caches)
+               if isinstance(t, torch.Tensor) and id(t) in kv)
+
+
+def cache_layout_line(r, plan, multi_pod=False) -> dict:
+    """The ``launch.cache_layout`` line of a decode cell's record ``r``
+    counted under ``plan``: its cache bytes a card beside the reference's
+    layout's, whole and K / V alone, the K / V bytes before the cut, the
+    all-reduce bytes and the bound."""
+    arch, shape = r["arch"], r["shape"]
+    line = dict(arch=arch, shape=shape, mesh=r["mesh"], layout=plan.cache_layout,
+                cache_bytes=r["memory_analysis"]["cache_size_in_bytes"],
+                reference_layout_cache_bytes=reference_cache_bytes(arch, shape, plan, multi_pod),
+                kv_bytes=port_kv_bytes(arch, shape, plan, multi_pod),
+                reference_layout_kv_bytes=reference_cache_bytes(arch, shape, plan, multi_pod,
+                                                                kv_only=True),
+                kv_bytes_uncut=port_kv_bytes(arch, shape, plan, multi_pod, cut=False),
+                all_reduce_bytes=r["collectives"]["bytes"]["all-reduce"],
+                all_reduce_count=r["collectives"]["counts"]["all-reduce"],
+                step_time_bound_s=r["roofline"]["step_time_bound_s"])
+    say("launch.cache_layout", **line)
+    return line
 
 
 def head_spans(cfg, model: int) -> dict:
@@ -2311,12 +2418,33 @@ def launch_grid(card) -> list:
                 dominant=rf["dominant"], step_time_bound_s=rf["step_time_bound_s"])
     for arch in TP_NEW_ARCHS:
         say("launch.heads", arch=arch, **head_spans(get_config(arch), model_axis))
+    # context-parallel caches: batch 1 cuts the long_500k caches' sequence
+    # over the data axes; under ``seq`` every decode_32k cell cuts it over
+    # ``model``.  The K / V bytes a card are the reference layout's, except
+    # where the reference cuts head_dim inside a kv head (hymba's 5 heads)
+    t_seq = time.perf_counter()
+    seq = ShardingPlan(cache_layout="seq")
+    seq_recs, _ = dryrun_mod.dryrun_records(list_archs(), ["decode_32k"], [False], out=out,
+                                            verbose=False, plan=seq)
+    seq_multi, _ = dryrun_mod.dryrun_records(["llama3-8b"], ["decode_32k"], [True], out=out,
+                                             verbose=False, plan=seq)
+    seq_wall = time.perf_counter() - t_seq
+    errors = [(r["arch"], r["shape"], r["error"]) for r in seq_recs + seq_multi if "error" in r]
+    assert not errors and len(seq_recs) == len(list_archs()), errors
+    for r, plan in [(r, ShardingPlan()) for r in counted if r["shape"] == "long_500k"] \
+            + [(r, seq) for r in seq_recs + seq_multi]:
+        line = cache_layout_line(r, plan, multi_pod=r["multi_pod"])
+        if r["arch"] in ("mixtral-8x7b", "mixtral-8x22b") or plan is seq:
+            assert line["kv_bytes"] == line["reference_layout_kv_bytes"], line
+        if r["shape"] == "long_500k" and line["kv_bytes"]:
+            assert line["kv_bytes_uncut"] == 32 * line["kv_bytes"], line
     print(report_mod.dryrun_table(recs), flush=True)
     print(report_mod.roofline_table(recs), flush=True)
     say("launch.grid", card=card, cells=len(recs), counted=len(counted), errors=len(errors),
         skipped=sum("skipped" in r for r in recs), wall_seconds=wall,
         count_seconds=sum(r.get("count_s", 0.0) for r in counted),
         new_cells=sum(r["arch"] in TP_NEW_ARCHS for r in counted),
+        seq_layout_cells=len(seq_recs) + len(seq_multi), seq_layout_wall_seconds=seq_wall,
         records=os.path.relpath(out, os.path.dirname(LAUNCH_OUT)))
     return recs
 
@@ -2508,6 +2636,24 @@ def phase_launch(device, card, seed) -> dict:
     return launches
 
 
+def phase_analysis() -> None:
+    """The port's invariant linter (``repro_torch.analysis``, stdlib only)
+    over the port, its tests and this script, on the card's machine, which
+    has no JAX: no finding, and no JAX module loaded."""
+    from repro_torch.analysis import ALL_RULES, run_paths
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    paths = [p for p in ("src/repro_torch", "tests", "chip_smoke.py")
+             if os.path.exists(os.path.join(root, p))]
+    report = run_paths(paths, root=Path(root))
+    jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    say("analysis", paths=paths, files=report.files, findings=len(report.findings),
+        suppressed=report.suppressed, rules=[r.id for r in ALL_RULES], jax_modules=jax_loaded,
+        wall_seconds=time.perf_counter() - t0)
+    assert report.files > 100 and not report.findings, [str(f) for f in report.findings]
+    assert not jax_loaded, jax_loaded
+
+
 def traced(fn, card, tag, **extra) -> None:
     """Run ``fn`` once untimed (warm-up), once on the host clock, once under
     torch.profiler; report the device's busy time, its idle share of the
@@ -2602,15 +2748,15 @@ def phase_profile(device, card, seed) -> None:
 
 
 # --------------------------------------------------------------------- main
-DEFAULT_PHASES = "order_by,families,archs,train,kernels,ops,main,llama,mesh,launch"
+DEFAULT_PHASES = "analysis,order_by,families,archs,train,kernels,ops,main,llama,mesh,launch"
 FALLBACK_CONT = [("fixed (phase order_by did not run)", dict(b=32, sq=64, off=192, sk=256))]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=DEFAULT_PHASES,
-                    help="comma-separated subset of order_by,families,archs,train,kernels,"
-                         "ops,main,llama,mesh,launch,profile")
+                    help="comma-separated subset of analysis,order_by,families,archs,train,"
+                         "kernels,ops,main,llama,mesh,launch,profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2626,6 +2772,8 @@ def main(argv=None) -> int:
     say("build", seconds_per_source=_build.build_seconds, wall_seconds=wall,
         nvcc=_build.find_nvcc())
 
+    if "analysis" in phases:
+        phase_analysis()
     launches_by_path = {}
     cont_shapes = FALLBACK_CONT
     fam = {}

@@ -27,7 +27,9 @@ identity outside one:
    empty).
 
 :func:`gather_over` / :func:`sum_over` / :func:`max_over` take a mesh and
-axes explicitly.
+axes explicitly, as does :func:`softmax_combine`, the attention over a KV
+cache whose sequence is cut over those axes (the reference's GSPMD sums
+the softmax statistics there instead of regathering the cache).
 
 Counting mode: on a :class:`CountingMesh` (an abstract mesh seen from the
 rank at coordinate 0 of every axis) no process group exists; each collective
@@ -215,6 +217,23 @@ def max_over(x, mesh, axes):
         else:
             dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+@torch.no_grad()
+def softmax_combine(o, m, l, mesh, axes):
+    """Attention over a sequence cut over ``axes`` from each process's
+    partial statistics over its slice (``models.layers.gqa_attention_partial``):
+    ``o`` the weighted V-sum (..., hd), ``m`` the scores' maximum and ``l``
+    the sum of their exponentials (...), all fp32.  Each slice is rescaled
+    by ``exp(m - M)`` with ``M`` the maximum over ``axes``; the rescaled
+    V-sums and denominators are summed over ``axes`` in one all-reduce, and
+    the result is their quotient.  A slice with every slot masked has
+    ``m = NEG_INF`` and weighs 0 beside any other; where every slice is
+    masked every weight is 1, which averages V over all slots, as the
+    unsharded softmax of a fully masked row does."""
+    w = torch.exp(m - max_over(m, mesh, axes))
+    s = sum_over(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1), mesh, axes)
+    return s[..., :-1] / s[..., -1:]
 
 
 def gather_over(x, mesh, axes, dim: int = 0):

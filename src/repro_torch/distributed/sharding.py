@@ -19,6 +19,11 @@ Plan knobs:
            back per stack at use: memory <-> collective trade)
   zero1    shard optimizer moments over the data axes even when params are
            replicated there
+  seq_shard_cache, cache_layout
+           where a decode cache's sequence dim is cut (:func:`cache_specs`;
+           the port's model holds a KV cache so cut through
+           :func:`cache_seq_cut`, when its caller asks for the plan's
+           layout)
 """
 from __future__ import annotations
 
@@ -280,6 +285,39 @@ def cache_specs(cache_shape, mesh, plan: ShardingPlan = ShardingPlan()):
         return P(*entries)
 
     return map_tree(spec_for, cache_shape)
+
+
+@dataclass(frozen=True)
+class SeqCut:
+    """A KV cache's sequence dim cut over ``axes`` into ``parts`` equal,
+    contiguous slices, of which this process holds slice ``index`` (its
+    flat coordinate over ``axes``, the first axis outermost, as
+    :func:`local_shard` cuts).  Not a tuple, so that the cache trees that
+    carry it (``models.layers.KVCacheSlice``) keep it as one leaf."""
+    axes: tuple
+    parts: int
+    index: int
+
+
+def cache_seq_cut(plan: ShardingPlan, mesh, batch: int, slots: int) -> Optional[SeqCut]:
+    """Where :func:`cache_specs` cuts dim 2 of a decode cache leaf
+    ``(n, batch, slots, ...)`` of a ``batch``-row (global) batch, and this
+    process's slice of it: over the data axes when ``batch`` does not divide
+    them and ``plan.seq_shard_cache`` is set, otherwise over ``model`` under
+    ``plan.cache_layout == "seq"``, in both cases only where ``slots``
+    divides the axes; None where nothing is cut (no such axes, or one
+    part)."""
+    daxes = data_axes(mesh)
+    axes = None
+    if _fit(batch, daxes, mesh) is None and plan.seq_shard_cache:
+        axes = _fit(slots, daxes, mesh)
+    if axes is None and plan.cache_layout == "seq":
+        axes = _fit(slots, MODEL, mesh)
+    if axes is None:
+        return None
+    axs = axes if isinstance(axes, tuple) else (axes,)
+    parts = axes_size(mesh, axs)
+    return SeqCut(axs, parts, axes_coord(mesh, axs)) if parts > 1 else None
 
 
 def arena_specs(arenas, mesh, plan: ShardingPlan = ShardingPlan()):

@@ -17,11 +17,20 @@ that counts every aten op.
   ``inference_mode`` composite ops such as ``matmul`` reach the counter
   undecomposed, and the registry knows ``mm``).  Parameters are built on
   ``meta`` (nothing drawn).  Decode caches are held as the sharded model computes
-  them (``LM.init_caches`` of the sharded LM): rows over the data axes where
-  the batch divides them; the kv heads, recurrent heads and SSM channels the
-  rank's layers compute (kv heads over ``model`` where they divide, else the
-  whole heads the rank's cut of the q heads reads; the reference's
-  ``cache_specs`` may cut a cache's sequence or head_dim instead).
+  them (``specs.cache_specs_for``, ``LM.init_caches`` of the sharded LM
+  given the cell's global batch), and a prefill emits them so: rows over
+  the data axes where the batch divides them; a KV cache's sequence (the
+  self-attention rings and ``xdec``'s cross K / V) exactly where the
+  reference's ``cache_specs`` cuts it, over the data axes where the batch
+  does not divide them (``long_500k``) or over ``model`` under
+  ``--cache-layout seq``, attention then combining the slices' softmax
+  statistics; elsewhere the kv heads, recurrent heads and SSM channels the
+  rank's layers compute (kv heads over ``model`` where they divide, else
+  the whole heads the rank's cut of the q heads reads, where the
+  reference cuts head_dim).  Recurrent states (SSM, mLSTM, sLSTM) keep that
+  layout where the reference's ``cache_specs`` also cuts their dim 2 over
+  the data axes at batch 1, and ``pos`` is cut with its K / V where the
+  reference reads its dim 1 as a batch.
 * **FLOPs**: ``torch.utils.flop_counter``'s registry over every op (matmuls,
   attention, convolutions; elementwise work counts 0, as in that counter).
 * **Bytes**: each op's inputs and outputs (an eager program reads and writes
@@ -44,11 +53,13 @@ that counts every aten op.
 A cell that raises (an unknown arch, say) gives a record with ``error`` and
 a non-zero exit, as the reference's failures do; every arch of the
 registry lays out on the production meshes.
-``--save-hlo`` has no counterpart: an eager program has no HLO.  The
-reference's ``--cache-layout seq`` has none either (see above)::
+``--save-hlo`` has no counterpart: an eager program has no HLO.
+``--cache-layout seq`` cuts decode caches' sequence over ``model``::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b \\
         --shape decode_32k --out dryrun.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --shape decode_32k \\
+        --cache-layout seq
     PYTHONPATH=src python -m repro_torch.launch.report dryrun.jsonl
 """
 from __future__ import annotations
@@ -235,6 +246,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "chips": int(amesh.size), "mesh": mesh_label(amesh), "kind": shape.kind,
         "plan": {"fsdp": plan.fsdp, "zero1": plan.zero1,
+                 "cache_layout": plan.cache_layout,
                  "seq_parallel": seq_parallel, "unroll": unroll,
                  **(cfg_overrides or {})},
     }
@@ -266,7 +278,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             args = [local.param_tree(), batch]
             with shard_context(cmesh, daxes if split else ()), act, \
                     torch.no_grad(), counter:
-                outs = list(local.prefill(batch))
+                outs = list(local.prefill(batch, global_batch=shape.global_batch))
         else:
             token, split = _rows(decode_token_spec(cfg, shape), cmesh)
             caches = cache_specs_for(cfg, shape, local, token.shape[0])
@@ -355,8 +367,9 @@ def main(argv=None) -> None:
     ap.add_argument("--moe-impl", default=None, choices=["global", "sharded"])
     ap.add_argument("--scan-chunk", type=int, default=None,
                     help="SSM/mLSTM chunkwise length override")
-    ap.add_argument("--cache-layout", default="feature", choices=["feature"],
-                    help="the port's one decode cache layout")
+    ap.add_argument("--cache-layout", default="feature",
+                    choices=["feature", "seq"],
+                    help="decode cache sharding layout (§Perf D)")
     ap.add_argument("--out", default=None, help="append JSONL records here")
     args = ap.parse_args(argv)
 

@@ -54,12 +54,14 @@ def cache_specs_for(cfg: ModelConfig, shape: InputShape, lm: Optional[LM] = None
                     batch: Optional[int] = None) -> Any:
     """Abstract decode caches (a list of layer-stacked caches, one a stack)
     for decode cells: the whole model's, or with ``lm`` (a sharded LM on
-    ``meta``) its process's part of ``batch`` rows."""
-    lm = lm or LM(cfg, device="meta")
+    ``meta``) its process's part of ``batch`` rows, each KV cache's
+    sequence cut where the LM's plan cuts it for the cell's global batch
+    (as the reference's ``cache_specs`` lays the cell's caches out)."""
     b = batch or shape.global_batch
     cache_len = shape.seq_len if cfg.input_mode != "encdec" else shape.seq_len // 2
     enc_len = shape.seq_len // 2 if cfg.input_mode == "encdec" else 0
-    return lm.init_caches(b, cache_len, enc_len=enc_len)
+    lm = lm or LM(cfg, device="meta")
+    return lm.init_caches(b, cache_len, enc_len=enc_len, global_batch=shape.global_batch)
 
 
 def decode_token_spec(cfg: ModelConfig, shape: InputShape) -> Any:

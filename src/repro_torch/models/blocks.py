@@ -31,6 +31,17 @@ dispatches each data shard's own tokens (:func:`~.moe.moe_ffn_sharded`); the
 global dispatch of a row-split batch ranks capacity over the whole batch,
 gathered over the data axes.
 
+Context-parallel caches: where a caller asks for its plan's layout
+(``LM.init_caches`` / ``LM.prefill`` given the global batch), a KV cache
+(a self-attention ring, ``xdec``'s cross K / V) may be a
+:class:`~.layers.KVCacheSlice`, its sequence cut over the data axes or
+over ``model`` exactly where the reference's ``cache_specs`` cuts it.  A
+decode step then writes the token on the process owning its slot and
+attends the slice (``layers.gqa_attention_partial``), combining the
+processes' softmax statistics (``distributed.context.softmax_combine``):
+over the data axes for the span's heads; over ``model`` for every head,
+q / k / v gathered over ``model`` and the span's heads kept for ``wo``.
+
 A stack of ``n`` layers keeps its parameters stacked with a leading layer dim,
 as the reference does; where the reference scans over that dim, the port runs
 a Python loop.  All kinds share one signature::
@@ -57,13 +68,14 @@ from torch.utils.checkpoint import checkpoint
 from ..distributed.context import (constrain, get_shard_context, local_rows,
                                    model_column_range, model_rank,
                                    model_row_sum, pin_rows, rows_gather,
-                                   rows_split)
+                                   rows_split, softmax_combine)
+from ..distributed.sharding import MODEL
 from .config import ModelConfig
-from .layers import (HeadSpan, KVCache, PagedKV, apply_rope, causal_mask,
-                     cut_rows, dtype_of, full_mask, gqa_attention,
-                     gqa_attention_bf16, gqa_attention_qchunk, head_span,
-                     paged_attend_dense, paged_decode_attention_dense,
-                     paged_write,
+from .layers import (HeadSpan, KVCache, KVCacheSlice, PagedKV, apply_rope,
+                     causal_mask, cut_rows, dtype_of, full_mask, gqa_attention,
+                     gqa_attention_bf16, gqa_attention_partial,
+                     gqa_attention_qchunk, head_span, paged_attend_dense,
+                     paged_decode_attention_dense, paged_write,
                      paged_write_index, rms_norm, stacked_dense_init, swiglu)
 from .moe import init_moe_params, moe_ffn, moe_ffn_sharded
 from .ssm import (init_ssm_params, init_ssm_state, ssm_prefill_state,
@@ -153,19 +165,25 @@ def unstack_layers(stack: dict, n: int) -> list[dict]:
 
 # ------------------------------------------------------------------- caches
 def map_cache(fn, cache):
-    """Apply ``fn`` to every tensor of a (nested tuple / NamedTuple) cache."""
+    """Apply ``fn`` to every tensor of a (nested tuple / NamedTuple) cache;
+    a leaf that is no tensor (a :class:`KVCacheSlice`'s cut) is kept."""
     if isinstance(cache, torch.Tensor):
         return fn(cache)
+    if not isinstance(cache, tuple):
+        return cache
     leaves = (map_cache(fn, c) for c in cache)
     return type(cache)(*leaves) if hasattr(cache, "_fields") else tuple(leaves)
 
 
 def stack_caches(caches: list):
     """Per-layer caches of one structure -> one cache with a leading layer
-    dim on every leaf."""
+    dim on every tensor (a leaf that is no tensor, a cut, is the
+    layers')."""
     first = caches[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(caches)
+    if not isinstance(first, tuple):
+        return first
     leaves = (stack_caches(list(group)) for group in zip(*caches))
     return type(first)(*leaves) if hasattr(first, "_fields") else tuple(leaves)
 
@@ -176,6 +194,8 @@ def _copy_into(dst, src) -> None:
     if isinstance(dst, torch.Tensor):
         if src is not dst:
             dst.copy_(src)
+        return
+    if not isinstance(dst, tuple):
         return
     for d, s in zip(dst, src):
         _copy_into(d, s)
@@ -191,21 +211,31 @@ def kv_heads_on(cfg: ModelConfig, model: int, rank: int) -> int:
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
-                     enc_len: int = 0, device=None, model: int = 1, rank: int = 0):
+                     enc_len: int = 0, device=None, model: int = 1, rank: int = 0,
+                     cut_of=None):
     """Cache for ONE layer of ``kind``: a ring KVCache (of length
     ``min(sliding_window, cache_len)`` for windowed kinds), with the SSM
     state beside it for Hymba, or with the cross K and V over ``enc_len``
     encoder positions for ``xdec``; the mLSTM / sLSTM state; ``()`` for
     ``enc``.  On a model axis of ``model`` the process at ``rank`` holds
     what its layer computes: the kv heads and recurrent heads of its
-    :func:`~.layers.head_span`, its slice of the SSM's channels."""
+    :func:`~.layers.head_span`, its slice of the SSM's channels.
+
+    ``cut_of(slots)``: the ``SeqCut`` of a KV cache of ``slots`` slots
+    (``distributed.sharding.cache_seq_cut``), or None.  A cut cache is
+    this process's :class:`~.layers.KVCacheSlice`, holding every kv head
+    where the cut is over ``model``; ``xdec``'s cut cross K / V is one
+    more slice, ``(self, cross)``."""
     _check_kind(kind)
     dtype = dtype_of(cfg.dtype)
     h, hd = cfg.n_heads, cfg.hd
 
+    def kv_heads(cut):
+        return cfg.n_kv_heads if _over_model(cut) else kv_heads_on(cfg, model, rank)
+
     def kvc(length):
-        return KVCache.init(batch, length, kv_heads_on(cfg, model, rank), hd,
-                            dtype, device)
+        cut = _cut(cut_of, length)
+        return KVCache.init(batch, length, kv_heads(cut), hd, dtype, device, cut)
 
     win = min(cfg.sliding_window, cache_len)
     if kind in ("attn", "moe"):
@@ -217,10 +247,14 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                 init_ssm_state(batch, cut_rows(cfg.d_inner, model), cfg.ssm_state,
                                cfg.ssm_conv_width, dtype, device))
     if kind == "xdec":
+        cut = _cut(cut_of, enc_len)
+
         def cross():
-            return torch.zeros((batch, enc_len, kv_heads_on(cfg, model, rank), hd),
+            return torch.zeros((batch, enc_len, kv_heads(cut), hd),
                                dtype=dtype, device=device)
-        return kvc(cache_len), cross(), cross()
+        if cut is None:
+            return kvc(cache_len), cross(), cross()
+        return kvc(cache_len), _cross_slice(cross(), cross(), cut)
     n_rec = head_span(h, h, hd, cut_rows(h * hd, model), rank).nq
     if kind == "mlstm":
         return init_mlstm_state(batch, n_rec, cfg.qk, hd, device)
@@ -254,7 +288,8 @@ def _heads(y, full: int, first: int, count: int, hd: int):
 def _attend(fn, q, k, v, span: HeadSpan, group: int):
     """``fn(q, k, v)`` over the span's heads.  GQA pairs q head ``j`` with kv
     head ``j // group``: where the span's q heads are not whole groups, one
-    call a kv head over the q heads of its group that the span holds."""
+    call a kv head over the q heads of its group that the span holds (their
+    outputs, or each of their tuple's outputs, joined along the heads)."""
     if span.grouped(group):
         return fn(q, k, v)
     outs = []
@@ -262,7 +297,52 @@ def _attend(fn, q, k, v, span: HeadSpan, group: int):
         lo = max(span.h0, (span.kv0 + j) * group) - span.h0
         hi = min(span.h0 + span.nq, (span.kv0 + j + 1) * group) - span.h0
         outs.append(fn(q[:, :, lo:hi], k[:, :, j:j + 1], v[:, :, j:j + 1]))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
     return torch.cat(outs, dim=2)
+
+
+# ------------------------------------------------- context-parallel caches
+def _over_model(cut) -> bool:
+    """A cache cut over ``model`` holds every kv head for its slots."""
+    return cut is not None and MODEL in cut.axes
+
+
+def _all_heads(cfg: ModelConfig) -> HeadSpan:
+    return HeadSpan(0, cfg.n_heads, 0, cfg.n_kv_heads, 0, cfg.n_heads * cfg.hd)
+
+
+def _kv_heads_for(cut, cfg: ModelConfig):
+    """The span whose kv heads a cache of ``cut`` holds: every head under a
+    cut over ``model``, else (None) the span's own."""
+    return _all_heads(cfg) if _over_model(cut) else None
+
+
+def _cut(cut_of, slots: int):
+    """``cut_of(slots)``, the cut of a cache of ``slots`` slots, or None
+    without ``cut_of`` (a caller that does not ask for its plan's layout;
+    a prefill's is ``ctx["cut_of"]``, set by ``LM.prefill``)."""
+    return cut_of(slots) if cut_of is not None else None
+
+
+def _cross_slice(xk, xv, cut) -> KVCacheSlice:
+    """This process's slice of the cross K / V (B, S_enc, KV, hd) over the
+    encoder positions, every slot valid (the cross attention's full
+    mask)."""
+    pos = torch.arange(xk.shape[1], dtype=torch.int32, device=xk.device)
+    return KVCacheSlice.of(KVCache(xk, xv, pos), cut)
+
+
+def _attend_cut(q, cache: KVCacheSlice, heads: HeadSpan, cfg: ModelConfig):
+    """``heads``' queries over a cut cache: partial softmax statistics over
+    this process's slots, combined over the cut's axes
+    (``distributed.context.softmax_combine``); (B, Sq, nq, hd) in the
+    cache's dtype."""
+    mask = cache.decode_mask()
+    o, m, l = _attend(lambda q, k, v: gqa_attention_partial(q, k, v, mask),
+                      q, cache.k, cache.v, heads, _group(cfg))
+    mesh = get_shard_context()[0]
+    return softmax_combine(o, m, l, mesh, cache.cut.axes).to(cache.v.dtype)
 
 
 def _out_proj(p, out, cfg: ModelConfig, span: HeadSpan, prefix: str = ""):
@@ -291,11 +371,14 @@ def _moe(p, h, cfg: ModelConfig):
                       p["w_down"], cfg.d_ff)
 
 
-def _qkv(p, x, cfg: ModelConfig, angles, span: HeadSpan):
+def _qkv(p, x, cfg: ModelConfig, angles, span: HeadSpan, kv=None):
+    """q over the span's heads, k and v over ``kv``'s kv heads (default the
+    span's)."""
     hd = cfg.hd
+    kv = kv or span
     q = _heads(x @ p["wq"], cfg.n_heads * hd, span.h0, span.nq, hd)
-    k = _heads(x @ p["wk"], cfg.n_kv_heads * hd, span.kv0, span.nkv, hd)
-    v = _heads(x @ p["wv"], cfg.n_kv_heads * hd, span.kv0, span.nkv, hd)
+    k = _heads(x @ p["wk"], cfg.n_kv_heads * hd, kv.kv0, kv.nkv, hd)
+    v = _heads(x @ p["wv"], cfg.n_kv_heads * hd, kv.kv0, kv.nkv, hd)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
@@ -306,9 +389,21 @@ def _group(cfg: ModelConfig) -> int:
     return cfg.n_heads // cfg.n_kv_heads
 
 
-def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False):
+def _kv_narrow(k, v, span: HeadSpan, kv):
+    """The span's kv heads of k and v that hold ``kv``'s (None: the
+    span's own)."""
+    if kv is None:
+        return k, v
+    return (k.narrow(2, span.kv0 - kv.kv0, span.nkv),
+            v.narrow(2, span.kv0 - kv.kv0, span.nkv))
+
+
+def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False, kv=None):
+    """Sequence attention over the span's heads; returns the output and the
+    k and v of ``kv``'s kv heads (default the span's), what a cache keeps."""
     span = _span(p, cfg)
-    q, k, v = _qkv(p, x, cfg, angles, span)
+    q, k_all, v_all = _qkv(p, x, cfg, angles, span, kv)
+    k, v = _kv_narrow(k_all, v_all, span, kv)
     s = x.shape[1]
     if cfg.attn_impl == "qchunk" and not bidir:
         def fn(q, k, v):
@@ -323,16 +418,28 @@ def _attn_seq(p, x, cfg, angles, window: int, bidir: bool = False):
         def fn(q, k, v):
             return att(q, k, v, mask)
     out = _attend(fn, q, k, v, span, _group(cfg))
-    return _out_proj(p, out, cfg, span), (k, v)
+    return _out_proj(p, out, cfg, span), (k_all, v_all)
 
 
-def _attn_decode(p, x, cfg, angles, cache: KVCache, position: int):
+def _attn_decode(p, x, cfg, angles, cache, position: int):
+    """One token against a ring cache.  On a :class:`KVCacheSlice` (a cache
+    whose sequence is cut) the token's K / V land on the process owning
+    their slot and attention combines every process's slice: over the data
+    axes for the span's heads; over ``model`` for every head (q / k / v
+    from the products gathered over ``model``), of which the span's are
+    kept for the output projection."""
     span = _span(p, cfg)
-    q, k, v = _qkv(p, x, cfg, angles, span)
+    if not isinstance(cache, KVCacheSlice):
+        q, k, v = _qkv(p, x, cfg, angles, span)
+        cache = cache.update(k, v, position)
+        mask = cache.decode_mask()
+        out = _attend(lambda q, k, v: gqa_attention(q, k, v, mask),
+                      q, cache.k, cache.v, span, _group(cfg))
+        return _out_proj(p, out, cfg, span), cache
+    heads = _kv_heads_for(cache.cut, cfg) or span
+    q, k, v = _qkv(p, x, cfg, angles, heads)
     cache = cache.update(k, v, position)
-    mask = cache.decode_mask()
-    out = _attend(lambda q, k, v: gqa_attention(q, k, v, mask),
-                  q, cache.k, cache.v, span, _group(cfg))
+    out = _attend_cut(q, cache, heads, cfg).narrow(2, span.h0 - heads.h0, span.nq)
     return _out_proj(p, out, cfg, span), cache
 
 
@@ -421,23 +528,32 @@ def _attn_cont(p, x, cfg, angles, cache: KVCache, reserve: int = 0):
             KVCache.from_prefill(k_all, v_all, 0, reserve))
 
 
-def _cross_attn(p, x, cfg, enc_kv=None, enc_out=None):
+def _cross_attn(p, x, cfg, enc_kv=None, enc_out=None, kv=None):
     """Cross-attention: q from x (no rope), k / v from the encoder's output,
-    or the pair cached after prefill (the span's kv heads); fp32 attention
-    under a full mask."""
+    or the pair cached after prefill (the span's kv heads), or a cut
+    :class:`KVCacheSlice` of them (as :func:`_attn_decode` attends one);
+    fp32 attention under a full mask.  Returns the output and the k / v of
+    ``kv``'s kv heads (default the span's)."""
     s = x.shape[1]
     kvw, hd = cfg.n_kv_heads * cfg.hd, cfg.hd
     span = _span(p, cfg, "x_")
+    if isinstance(enc_kv, KVCacheSlice):
+        heads = _kv_heads_for(enc_kv.cut, cfg) or span
+        q = _heads(x @ p["x_wq"], cfg.n_heads * hd, heads.h0, heads.nq, hd)
+        out = _attend_cut(q, enc_kv, heads, cfg).narrow(2, span.h0 - heads.h0, span.nq)
+        return _out_proj(p, out, cfg, span, "x_"), enc_kv
     q = _heads(x @ p["x_wq"], cfg.n_heads * hd, span.h0, span.nq, hd)
     if enc_kv is None:
-        k = _heads(enc_out @ p["x_wk"], kvw, span.kv0, span.nkv, hd)
-        v = _heads(enc_out @ p["x_wv"], kvw, span.kv0, span.nkv, hd)
+        held = kv or span
+        k_all = _heads(enc_out @ p["x_wk"], kvw, held.kv0, held.nkv, hd)
+        v_all = _heads(enc_out @ p["x_wv"], kvw, held.kv0, held.nkv, hd)
     else:
-        k, v = enc_kv
+        k_all, v_all = enc_kv
+    k, v = _kv_narrow(k_all, v_all, span, kv)
     mask = full_mask(s, k.shape[1], device=x.device)
     out = _attend(lambda q, k, v: gqa_attention(q, k, v, mask), q, k, v, span,
                   _group(cfg))
-    return _out_proj(p, out, cfg, span, "x_"), (k, v)
+    return _out_proj(p, out, cfg, span, "x_"), (k_all, v_all)
 
 
 # ------------------------------------------------------------------- apply
@@ -469,9 +585,11 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
         elif mode == "prefill_cont":
             a, new_cache = _attn_cont(p, h, cfg, angles, cache, reserve)
         else:
-            a, (k, v) = _attn_seq(p, h, cfg, angles, window, bidir=kind == "enc")
+            cut = _cut(ctx.get("cut_of"), window or x.shape[1] + reserve)
+            a, (k, v) = _attn_seq(p, h, cfg, angles, window, bidir=kind == "enc",
+                                  kv=_kv_heads_for(cut, cfg))
             if mode == "prefill":
-                new_cache = KVCache.from_prefill(k, v, window, reserve)
+                new_cache = KVCache.from_prefill(k, v, window, reserve, cut)
         x = x + rs * a
         h = rms_norm(x, p["norm2"], eps)
         if kind in ("moe", "moe_swa"):
@@ -486,11 +604,12 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
             s_out, sst = ssm_step(p["ssm"], h, sst, d_inner=cfg.d_inner)
             new_cache = (kvc, sst)
         else:
-            a, (k, v) = _attn_seq(p, h, cfg, angles, window)
+            cut = _cut(ctx.get("cut_of"), window or x.shape[1] + reserve)
+            a, (k, v) = _attn_seq(p, h, cfg, angles, window, kv=_kv_heads_for(cut, cfg))
             if mode == "prefill":
                 s_out, sst = ssm_prefill_state(p["ssm"], h, chunk=cfg.scan_chunk,
                                                d_inner=cfg.d_inner)
-                new_cache = (KVCache.from_prefill(k, v, window, reserve), sst)
+                new_cache = (KVCache.from_prefill(k, v, window, reserve, cut), sst)
             else:
                 s_out, _ = ssm_sequence(p["ssm"], h, chunk=cfg.scan_chunk,
                                         d_inner=cfg.d_inner)
@@ -502,19 +621,25 @@ def apply_block(kind: str, cfg: ModelConfig, p, x, ctx, cache, mode: str):
     if kind == "xdec":
         h = rms_norm(x, p["norm1"], eps)
         if mode == "decode":
-            kvc, xk, xv = cache
+            kvc, *cross = cache                 # (xk, xv), or one cut slice
             a, kvc = _attn_decode(p, h, cfg, angles, kvc, ctx["position"])
             x = x + rs * a
             h = rms_norm(x, p["norm_x"], eps)
-            a, _ = _cross_attn(p, h, cfg, enc_kv=(xk, xv))
-            new_cache = (kvc, xk, xv)
+            a, _ = _cross_attn(p, h, cfg, enc_kv=cross[0] if len(cross) == 1
+                               else tuple(cross))
+            new_cache = (kvc, *cross)
         else:
-            a, (k, v) = _attn_seq(p, h, cfg, angles, 0)
+            cut = _cut(ctx.get("cut_of"), x.shape[1] + reserve)
+            a, (k, v) = _attn_seq(p, h, cfg, angles, 0, kv=_kv_heads_for(cut, cfg))
             x = x + rs * a
             h = rms_norm(x, p["norm_x"], eps)
-            a, (xk, xv) = _cross_attn(p, h, cfg, enc_out=ctx["enc_out"])
+            xcut = _cut(ctx.get("cut_of"), ctx["enc_out"].shape[1])
+            a, (xk, xv) = _cross_attn(p, h, cfg, enc_out=ctx["enc_out"],
+                                      kv=_kv_heads_for(xcut, cfg))
             if mode == "prefill":
-                new_cache = (KVCache.from_prefill(k, v, 0, reserve), xk, xv)
+                kvc = KVCache.from_prefill(k, v, 0, reserve, cut)
+                new_cache = ((kvc, xk, xv) if xcut is None
+                             else (kvc, _cross_slice(xk, xv, xcut)))
         x = x + rs * a
         h = rms_norm(x, p["norm2"], eps)
         return x + rs * _ffn(h, p["ffn"], cfg), new_cache

@@ -12,14 +12,20 @@ Where the reference builds a new array with ``.at[].set`` and relies on buffer
 donation, the port updates in place: :meth:`KVCache.update` and
 :func:`paged_decode_attention_dense` write into the tensors they are given and
 return them.
+
+Where the reference's GSPMD lays a cache's sequence out over a mesh axis,
+the port holds this process's :class:`KVCacheSlice` of the slots and
+attends it with :func:`gqa_attention_partial` (``models.blocks``).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.sharding import SeqCut
 
 NEG_INF = -1e30
 
@@ -147,6 +153,32 @@ def gqa_attention(q, k, v, mask):
     return out.reshape(b, sq, h, hd)
 
 
+def gqa_attention_partial(q, k, v, mask):
+    """:func:`gqa_attention` over a slice of the keys, before the softmax's
+    normalisation: ``(o, m, l)``, with ``m`` (B, Sq, H) the maximum of the
+    same fp32 scores under the same ``NEG_INF`` mask, ``l`` (B, Sq, H) the
+    sum of their exponentials less ``m``, and ``o`` (B, Sq, H, hd) fp32 the
+    V-sum they weigh (the weights cast to ``v.dtype`` for the product, as
+    :func:`gqa_attention` casts its).  A slice whose slots are all masked
+    gives ``m = NEG_INF``.  ``distributed.context.softmax_combine`` makes
+    the slices' statistics one attention."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    o = torch.einsum("bkgqs,bskd->bqkgd", e.to(v.dtype), v).float()
+
+    def heads_last(s):                       # (B, KV, G, Sq) -> (B, Sq, H)
+        return s.permute(0, 3, 1, 2).reshape(b, sq, h)
+
+    return o.reshape(b, sq, h, hd), heads_last(m[..., 0]), heads_last(e.sum(dim=-1))
+
+
 def gqa_attention_bf16(q, k, v, mask):
     """Scores and softmax stored in the working dtype end to end."""
     b, sq, h, hd = q.shape
@@ -222,21 +254,33 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def init(batch: int, cache_len: int, n_kv: int, hd: int, dtype,
-             device=None) -> "KVCache":
-        return KVCache(
-            k=torch.zeros((batch, cache_len, n_kv, hd), dtype=dtype, device=device),
-            v=torch.zeros((batch, cache_len, n_kv, hd), dtype=dtype, device=device),
-            pos=torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+             device=None, cut: Optional[SeqCut] = None):
+        """An empty cache of ``cache_len`` slots; with ``cut``, this
+        process's :class:`KVCacheSlice` of them."""
+        n = cache_len // cut.parts if cut is not None else cache_len
+        cache = KVCache(
+            k=torch.zeros((batch, n, n_kv, hd), dtype=dtype, device=device),
+            v=torch.zeros((batch, n, n_kv, hd), dtype=dtype, device=device),
+            pos=torch.full((n,), -1, dtype=torch.int32, device=device),
         )
+        return cache if cut is None else KVCacheSlice(*cache, cut)
 
     @staticmethod
-    def from_prefill(k, v, window: int = 0, reserve: int = 0) -> "KVCache":
+    def from_prefill(k, v, window: int = 0, reserve: int = 0,
+                     cut: Optional[SeqCut] = None):
         """Build a cache from prefill-computed k/v (B, S, KV, hd).  Sliding
         window: a ring of ``window`` slots holding the trailing ``window``
         positions at ``slot = position % window`` (``window < S``), or the
         S positions followed by empty slots (``window >= S``).  Full
         attention: ``reserve`` extra empty slots so that later decode
-        positions never wrap the ring."""
+        positions never wrap the ring.  With ``cut``, this process's
+        :class:`KVCacheSlice` of those slots (a ring's or the ``reserve``
+        tail's alike)."""
+        cache = KVCache._from_prefill(k, v, window, reserve)
+        return cache if cut is None else KVCacheSlice.of(cache, cut)
+
+    @staticmethod
+    def _from_prefill(k, v, window: int, reserve: int) -> "KVCache":
         b, s = k.shape[:2]
         dev = k.device
         if window and window < s:
@@ -267,6 +311,47 @@ class KVCache(NamedTuple):
 
     def decode_mask(self):
         """(1, 1, 1, 1, S_c) validity mask."""
+        return (self.pos >= 0)[None, None, None, None, :]
+
+
+class KVCacheSlice(NamedTuple):
+    """This process's slice of a :class:`KVCache` whose slots (the
+    sequence dim) are cut over a mesh's axes (``cut``, a
+    ``distributed.sharding.SeqCut``): slots ``[index * n, (index + 1) *
+    n)`` of ``parts * n``, with their ``pos``.  The ring is the whole
+    cache's: a position lands at ``slot = position % (parts * n)``, on the
+    process whose slice holds that slot.  Attention over it is
+    ``gqa_attention_partial`` and the combine over ``cut.axes``
+    (``models.blocks``).  Stacked over a layer stack the tensors gain a
+    leading dim; the cut is one for the stack."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    cut: SeqCut
+
+    @staticmethod
+    def of(cache: KVCache, cut: SeqCut) -> "KVCacheSlice":
+        """This process's slots of a whole (unstacked) ``cache``, copied."""
+        n = cache.k.shape[1] // cut.parts
+        lo = cut.index * n
+        return KVCacheSlice(cache.k[:, lo:lo + n].clone(), cache.v[:, lo:lo + n].clone(),
+                            cache.pos[lo:lo + n].clone(), cut)
+
+    def update(self, k_new, v_new, position: int) -> "KVCacheSlice":
+        """Insert one token (B, 1, KV, hd) at absolute ``position`` (a
+        Python int), in place, if this process holds its slot: decided on
+        the host, no device sync."""
+        n = self.k.shape[1]
+        slot = int(position) % (n * self.cut.parts) - self.cut.index * n
+        if 0 <= slot < n:
+            self.k[:, slot] = k_new[:, 0]
+            self.v[:, slot] = v_new[:, 0]
+            self.pos[slot] = int(position)
+        return self
+
+    def decode_mask(self):
+        """(1, 1, 1, 1, n) validity mask of the slice's slots."""
         return (self.pos >= 0)[None, None, None, None, :]
 
 

@@ -51,8 +51,8 @@ from ..distributed.context import (constrain, gather_over, get_shard_context,
                                    model_gather, model_rank, model_sum,
                                    pin_rows)
 from ..distributed.sharding import (MODEL, ShardingPlan, axes_size,
-                                    axis_size, local_shard, map_with_path,
-                                    param_specs)
+                                    axis_size, cache_seq_cut, local_shard,
+                                    map_with_path, param_specs)
 from .blocks import apply_stack, init_block_cache, init_stack, map_cache
 from .config import ModelConfig
 from .layers import dtype_of, rms_norm, rope_angles
@@ -93,7 +93,7 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self._fsdp: dict = {}               # path -> [(dim, data axes)]
-        self._mesh = None
+        self._mesh = self._plan = None
         dev = resolve_device(device)
         if dev.type == "meta":
             generator = None
@@ -130,7 +130,7 @@ class LM(nn.Module):
         ``cfg``'s layout) without copying them."""
         lm = cls.__new__(cls)
         nn.Module.__init__(lm)
-        lm.cfg, lm._fsdp, lm._mesh = cfg, {}, None
+        lm.cfg, lm._fsdp, lm._mesh, lm._plan = cfg, {}, None, None
 
         def par(t):
             return nn.Parameter(t.detach(), requires_grad=t.requires_grad)
@@ -153,11 +153,15 @@ class LM(nn.Module):
         """This process's LM on ``mesh``: every parameter cut by
         ``param_specs`` (a leaf replicated everywhere is shared, not
         copied).  Leaves the plan's ``fsdp`` splits over the data axes are
-        gathered back per stack when a forward reads them."""
+        gathered back per stack when a forward reads them.  The LM keeps the
+        plan: its decode-cache layout (``seq_shard_cache``,
+        ``cache_layout``) applies where :meth:`init_caches` and
+        :meth:`prefill` are given the global batch."""
+        plan = plan or ShardingPlan()
         tree = self.param_tree()
-        specs = param_specs(tree, mesh, plan or ShardingPlan())
+        specs = param_specs(tree, mesh, plan)
         lm = LM.from_tree(self.cfg, local_shard(tree, specs, mesh))
-        lm._mesh = mesh
+        lm._mesh, lm._plan = mesh, plan
 
         def note(path, spec):
             dims = [(i, e) for i, e in enumerate(spec)
@@ -167,6 +171,15 @@ class LM(nn.Module):
 
         map_with_path(note, specs)
         return lm
+
+    def _cut_of(self, global_batch: Optional[int]):
+        """``slots -> SeqCut or None``: where the plan cuts the sequence of
+        a KV cache of a ``global_batch``-row batch
+        (``distributed.sharding.cache_seq_cut``); None (nothing cut) on an
+        unsharded LM or without a global batch."""
+        if self._mesh is None or global_batch is None:
+            return None
+        return lambda slots: cache_seq_cut(self._plan, self._mesh, global_batch, slots)
 
     def _check_context(self) -> None:
         if self._mesh is not None and get_shard_context() is None:
@@ -292,13 +305,17 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- forward
     def forward(self, batch, mode: str = "train", caches=None,
-                position: Optional[int] = None, reserve: int = 0):
-        """Returns (hidden (B, S, D), new_caches_or_None)."""
+                position: Optional[int] = None, reserve: int = 0,
+                global_batch: Optional[int] = None):
+        """Returns (hidden (B, S, D), new_caches_or_None).  ``global_batch``:
+        see :meth:`prefill`."""
         cfg = self.cfg
         self._check_context()
         x = constrain(pin_rows(self._embed_in(batch)))
         b, s, _ = x.shape
         ctx: dict[str, Any] = {"reserve": reserve}
+        if mode == "prefill":
+            ctx["cut_of"] = self._cut_of(global_batch)
         if mode == "decode":
             pos_arr = torch.full((b, 1), int(position), dtype=torch.int32,
                                  device=x.device)
@@ -363,27 +380,37 @@ class LM(nn.Module):
                       "tokens": torch.tensor(float(ntok), device=x.device)}
 
     # ------------------------------------------------------------- serving
-    def init_caches(self, batch_size: int, cache_len: int, enc_len: int = 0):
+    def init_caches(self, batch_size: int, cache_len: int, enc_len: int = 0,
+                    global_batch: Optional[int] = None):
         """Empty decode caches; on a sharded LM this process's part, as its
         layers compute them (its kv heads, recurrent heads and SSM
-        channels; ``batch_size`` its rows)."""
+        channels; ``batch_size`` its rows).  Given ``global_batch`` (the
+        rows of every data shard together), a sharded LM cuts each KV
+        cache's sequence where its plan's layout does
+        (``distributed.sharding.cache_seq_cut``): this process holds a
+        ``layers.KVCacheSlice`` of the slots."""
         cfg = self.cfg
         model, rank = 1, 0
         if self._mesh is not None:
             model = axis_size(self._mesh, MODEL)
             rank = int(self._mesh.get_local_rank(MODEL))
+        cut_of = self._cut_of(global_batch)
         caches = []
         for kind, n in cfg.pattern:
             one = init_block_cache(kind, cfg, batch_size, cache_len, enc_len,
-                                   self.device, model, rank)
+                                   self.device, model, rank, cut_of)
             caches.append(map_cache(
                 lambda leaf: leaf[None].repeat(n, *([1] * leaf.dim())), one))
         return caches
 
-    def prefill(self, batch, reserve: int = 0):
+    def prefill(self, batch, reserve: int = 0, global_batch: Optional[int] = None):
         """Ingest the full context; returns (last_logits (B, V), caches).
-        ``reserve`` extra cache slots for subsequent decode."""
-        x, caches = self.forward(batch, mode="prefill", reserve=reserve)
+        ``reserve`` extra cache slots for subsequent decode.  Given
+        ``global_batch``, a sharded LM emits its caches in its plan's layout,
+        as :meth:`init_caches` builds them; :meth:`decode_step` takes either
+        layout."""
+        x, caches = self.forward(batch, mode="prefill", reserve=reserve,
+                                 global_batch=global_batch)
         return self._head(x[:, -1:, :])[:, 0], caches
 
     def prefill_cont(self, caches, batch, reserve: int = 0):

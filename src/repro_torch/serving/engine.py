@@ -597,7 +597,9 @@ class ServeEngine:
         round."""
         if self.pool is None:
             return None
-        ids = self.pool.lease(rows * self.pool.blocks_for(cls))
+        # ownership transfers to the caller, which releases via
+        # _release_lease in its own try/finally
+        ids = self.pool.lease(rows * self.pool.blocks_for(cls))  # lint: disable=kv-pairing
         if ids is None:
             self.stats.probe_lease_shortfalls += 1
         else:
@@ -654,7 +656,9 @@ class ServeEngine:
 
         def pin(entry: PrefixEntry) -> None:
             if entry.blocks is not None:
-                self.pool.incref(entry.blocks)
+                # ownership transfers to the caller via the returned pin
+                # list (released with _release_pins in a try/finally there)
+                self.pool.incref(entry.blocks)  # lint: disable=kv-pairing
                 pins.append(entry.blocks)
 
         by_len: dict[int, list[tuple]] = {}
@@ -719,7 +723,9 @@ class ServeEngine:
             self._evict_one_prefix()
         if self.pool.free_blocks < need:
             return None
-        return [self.pool.alloc(nb) for _ in range(rows)]
+        # ownership transfers to the probe-submission caller, which releases
+        # every run in its round-scoped finally (_release_lease path)
+        return [self.pool.alloc(nb) for _ in range(rows)]  # lint: disable=kv-pairing
 
     def _evict_one_prefix(self) -> None:
         _, entry = self._prefix_lru.popitem(last=False)
@@ -1081,10 +1087,14 @@ class ServeEngine:
         try:
             for nb in counts:
                 if incref_run is not None:
-                    self.pool.incref(incref_run)
+                    # released by the except-PoolExhausted rollback below;
+                    # on success ownership lives in the returned row runs
+                    self.pool.incref(incref_run)  # lint: disable=kv-pairing
                 while (self.pool.free_blocks < nb and self._prefix_lru):
                     self._evict_one_prefix()
-                runs.append(self.pool.alloc(nb))
+                # released by the except-PoolExhausted rollback below; on
+                # success ownership lives in the returned row runs
+                runs.append(self.pool.alloc(nb))  # lint: disable=kv-pairing
         except PoolExhausted:
             for rb in runs:
                 self.pool.decref(rb)

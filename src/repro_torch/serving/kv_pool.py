@@ -140,7 +140,8 @@ class KVBlockPool:
         if n > len(self._free):
             self.lease_shortfalls += 1
             return None
-        ids = self.alloc(n)
+        # ownership transfers to the lease holder, who decrefs the run
+        ids = self.alloc(n)  # lint: disable=kv-pairing
         self.total_leased += n
         return ids
 

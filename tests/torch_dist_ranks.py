@@ -450,3 +450,106 @@ def tp_arch_case(rank, world, data, model, weights, plan):
     out["mixtral-bf16"] = (router_choices(lm, engine(lm)),
                            router_choices(lm, engine(lm, mesh=mesh)))
     return out if rank == 0 else {k: v for k, v in out.items() if "train" not in k}
+
+
+# ------------------------------------------- context-parallel decode caches
+# arch -> the fp32 config overrides of its case: qwen2-vl's 3 heads over 1
+# kv head put a span that is not whole groups on each model rank
+CP_ARCHS = {"stablelm-1.6b": {}, "mixtral-8x7b": {}, "hymba-1.5b": {},
+            "qwen2-vl-7b": dict(n_heads=3, n_kv_heads=1, head_dim=16),
+            "seamless-m4t-medium": {}}
+# a 20-token prompt with 28 reserved slots: 48 full-attention slots, so a
+# process's half starts empty; the windowed rings (16 slots) wrap in the
+# prefill, and the 12 decode steps cross their slices' boundary
+CP_PROMPT, CP_RESERVE, CP_STEPS, CP_ENC = 20, 28, 12, 10
+
+
+def cp_cfg(arch, dtype="float32"):
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced(arch), dtype=dtype, **(
+        CP_ARCHS[arch] if dtype == "float32" else {}))
+
+
+def cp_inputs(cfg, batch, seed=11):
+    """The prefill batch and the decode steps' inputs (numpy) of a ``batch``
+    row case: tokens, or embeddings, plus the encoder's input."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        pre = {"embeds": rng.standard_normal((batch, CP_PROMPT, cfg.d_model)).astype(np.float32)}
+        steps = [rng.standard_normal((batch, 1, cfg.d_model)).astype(np.float32)
+                 for _ in range(CP_STEPS)]
+    else:
+        pre = {"tokens": rng.integers(0, cfg.vocab_size, (batch, CP_PROMPT)).astype(np.int32)}
+        steps = [rng.integers(0, cfg.vocab_size, (batch, 1)).astype(np.int32)
+                 for _ in range(CP_STEPS)]
+    if cfg.input_mode == "encdec":
+        pre["enc_embeds"] = rng.standard_normal((batch, CP_ENC, cfg.d_model)).astype(np.float32)
+    return pre, steps
+
+
+def cp_layouts(data, model):
+    """(layout, global batch) of each case on a ``data`` x ``model`` mesh:
+    batch 1 in the feature layout, its sequence cut over the data axes; batch
+    2 under ``seq``, rows over data and the sequence over ``model``."""
+    return ([("feature", 1)] if data > 1 else []) + ([("seq", 2)] if model > 1 else [])
+
+
+def _cp_run(lm, pre, steps, rows, **kw):
+    """Prefill and decode ``rows`` of the inputs; logits of every call, the
+    prefill's caches and the caches after the last step (numpy)."""
+    from repro_torch.models.blocks import map_cache
+
+    def t(a):
+        return torch.from_numpy(a[rows])
+
+    def host(caches):
+        return [map_cache(lambda x: (x.float() if x.is_floating_point() else x).numpy().copy(), c)
+                for c in caches]
+
+    with torch.inference_mode():
+        logits, caches = lm.prefill({k: t(v) for k, v in pre.items()},
+                                    reserve=CP_RESERVE, **kw)
+        out, first = [logits.float().numpy().copy()], host(caches)
+        for i, step in enumerate(steps):
+            logits, caches = lm.decode_step(caches, t(step), CP_PROMPT + i)
+            out.append(logits.float().numpy().copy())
+    return out, first, host(caches)
+
+
+def cp_case(rank, world, data, model, weights):
+    """Every arch of ``CP_ARCHS`` in fp32 from the reference's weights
+    (``weights``: arch -> pickled numpy tree), and the stock bf16 stablelm
+    from a seed, on a ``data`` x ``model`` mesh: in each layout of
+    :func:`cp_layouts`, a prefill and ``CP_STEPS`` decode steps of
+    ``LM.sharded(mesh, ShardingPlan(cache_layout=...))`` given the global
+    batch, beside the unsharded LM's on the same inputs.  Returns the
+    logits, the caches after the prefill and after the last step, this
+    process's rows and the cut of each stack's caches."""
+    from repro_torch.convert import from_jax_params
+    from repro_torch.distributed import ShardingPlan
+    from repro_torch.distributed.context import shard_context
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    mesh = make_local_mesh(data, model, device="cpu")
+    d_rank = int(mesh.get_local_rank("data"))
+    lms = {}
+    for arch, path in weights.items():
+        with open(path, "rb") as f:
+            lms[arch] = from_jax_params(pickle.load(f), cp_cfg(arch), device="cpu")
+    lms["stablelm-bf16"] = LM(cp_cfg("stablelm-1.6b", "bfloat16"), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, lm in lms.items():
+        for layout, batch in cp_layouts(data, model):
+            pre, steps = cp_inputs(lm.cfg, batch)
+            split = batch % data == 0 and data > 1
+            rows = slice(d_rank, d_rank + 1) if split else slice(0, batch)
+            base = _cp_run(lm, pre, steps, slice(0, batch))
+            sharded = lm.sharded(mesh, ShardingPlan(cache_layout=layout))
+            with shard_context(mesh, ("data",) if split else ()):
+                got = _cp_run(sharded, pre, steps, rows, global_batch=batch)
+            cuts = [[getattr(c, "cut", None) for c in (st if type(st) is tuple else (st,))]
+                    for st in got[1]]
+            out[name, layout] = dict(base=base, got=got, rows=(rows.start, rows.stop),
+                                     cuts=cuts)
+    return out

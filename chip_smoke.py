@@ -2655,16 +2655,11 @@ def phase_analysis() -> None:
 
 
 def traced(fn, card, tag, **extra) -> None:
-    """Run ``fn`` once untimed (warm-up), once on the host clock, once under
-    torch.profiler; report the device's busy time, its idle share of the
-    untraced wall time, and the kernels by device time."""
+    """Run ``fn`` once untimed (warm-up), then once under torch.profiler;
+    report the kernels by device time and their sum."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2677,8 +2672,7 @@ def traced(fn, card, tag, **extra) -> None:
               if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:12]
-    say(tag, card=card, wall_ms_untraced=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=1 - busy_ms / wall_ms if busy_ms else None,
+    say(tag, card=card, device_busy_ms=busy_ms,
         kernel_launches=sum(e.count for e in events),
         kernels=[dict(name=e.key[:80], calls=e.count, device_ms=dev_us(e) / 1e3) for e in top],
         **extra)

@@ -38,12 +38,14 @@ the executor is record-for-record identical to its solo run.  See
 DESIGN.md "Probe-plan executor" and "Unified step loop".
 
 Counterpart of ``src/repro/core/executor.py`` (copied; only imports and
-cross-references point at the port)."""
+cross-references point at the port, and the tick is a span of
+``repro_torch.trace``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
+from .. import trace
 from .oracles.base import CallRecord, LedgerView
 from .types import InvalidOutputError, SortResult, SortSpec
 
@@ -326,6 +328,7 @@ class ProbePlanExecutor:
                 and type(ps) in _DEFERRED_KIND
                 and hasattr(run.ordering.oracle, "begin_probe_round"))
 
+    @trace.spanned("operator.executor_tick")
     def tick(self) -> bool:
         """One scheduling tick; returns True while any plan remains live."""
         live = []

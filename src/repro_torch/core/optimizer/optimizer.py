@@ -49,6 +49,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ... import trace
 from ..access_paths.base import Ordering
 from ..executor import (PlanCancelled, ProbePlanExecutor, attach_scheduler,
                         auto_scheduler, detach_scheduler, plan_sort_result)
@@ -331,6 +332,7 @@ class OptimizerDriver:
             name=f"{self.name}:exec:{cand.label}", tenant=self.tenant))
 
     # ---------------------------------------------------------------- tick
+    @trace.spanned("operator.driver_tick")
     def on_tick(self, _ex=None) -> None:
         if self.done:
             return

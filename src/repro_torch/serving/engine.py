@@ -75,6 +75,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import trace
 from ..data.tokenizer import EOS, PAD, ByteTokenizer
 from ..device import resolve_device
 from ..distributed.context import gather_over, shard_context
@@ -186,10 +187,13 @@ class PrefixEntry:
     """One prefix-cache region: ``PAD*pad + prefix`` at positions
     [0, length).  Pool-backed entries hold their KV as a pinned block run
     (``blocks``, one LRU-owned reference); when the pool is absent or full,
-    ``caches`` holds the dense per-stack KV directly."""
+    ``caches`` holds the dense per-stack KV directly.  ``prefetched`` marks
+    a region that ``prefetch_prefixes`` filled while a profiler recorded,
+    until a probe submission first looks it up."""
     length: int
     blocks: Optional[list] = None
     caches: Optional[list] = None
+    prefetched: bool = False
 
 
 @dataclass
@@ -445,7 +449,12 @@ class ServeEngine:
 
     @staticmethod
     def _host(logits: torch.Tensor) -> np.ndarray:
-        return logits.float().cpu().numpy()
+        """Every row of ``logits`` in fp32 on the host (the host waits for
+        the device here)."""
+        with trace.span("engine.readback"):
+            out = logits.float().cpu().numpy()
+        trace.count("engine.readback_bytes", out.nbytes)
+        return out
 
     # --------------------------------------------------------------- probes
     @staticmethod
@@ -493,26 +502,79 @@ class ServeEngine:
         plain: dict[int, list[int]] = {}           # class -> indices
         structured: dict[int, list[tuple]] = {}    # class -> (idx, pids, sids)
         enc: list = [None] * n                     # per-index full token ids
-        for i, p in enumerate(prompts):
-            prefix, suffix = self._parts(p)
-            if prefix is not None and self.prefix_cache_enabled:
-                pids = tuple(self.tok.encode(prefix))
-                sids = self.tok.encode(suffix, bos=False)
-                enc[i] = list(pids) + sids
-                structured.setdefault(
-                    self._pad_class(len(enc[i])), []).append((i, pids, sids))
-            else:
-                enc[i] = self.tok.encode(suffix if prefix is None
-                                         else prefix + suffix)
-                plain.setdefault(self._pad_class(len(enc[i])), []).append(i)
-        out = np.zeros((n, self.lm.cfg.vocab_size), np.float32)
+        with trace.span("engine.encode"):
+            for i, p in enumerate(prompts):
+                prefix, suffix = self._parts(p)
+                if prefix is not None and self.prefix_cache_enabled:
+                    pids = tuple(self.tok.encode(prefix))
+                    sids = self.tok.encode(suffix, bos=False)
+                    enc[i] = list(pids) + sids
+                    structured.setdefault(self._pad_class(len(enc[i])),
+                                          []).append((i, pids, sids))
+                else:
+                    enc[i] = self.tok.encode(suffix if prefix is None
+                                             else prefix + suffix)
+                    plain.setdefault(self._pad_class(len(enc[i])),
+                                     []).append(i)
+            out = np.zeros((n, self.lm.cfg.vocab_size), np.float32)
+        with trace.span("engine.route"):
+            window_jobs = self._route(structured, plain)
 
-        # Prefix-cache routing policy (per padded-length class): a row rides
-        # the prefix path only when its (prefix, start) entry is already
-        # cached or at least one class-mate shares it; otherwise the fill
-        # would cost as much as the monolithic row.  Demoted rows join the
-        # class's plain submission.
-        window_jobs: list[tuple] = []              # (cls, lw, rows)
+        for cls in sorted(plain):
+            for g in _chunks(sorted(plain[cls]), max_batch):
+                lease = self._lease_probe_blocks(len(g), cls)
+                try:
+                    with trace.span("engine.prefill"):
+                        tokens = self._pad_ids([enc[i] for i in g], maxlen=cls)
+                        logits, _, _ = self._run(self._prefill, tokens)
+                    self.stats.prefill_tokens += int(tokens.size)
+                    self.stats.calls += 1
+                    self.stats.probe_rows += len(g)
+                    self.stats.probe_row_slots += int(tokens.shape[0])
+                    trace.count("engine.probe_rows", len(g))
+                    rows = self._host(logits)[:len(g)]
+                    with trace.span("engine.scatter"):
+                        out[np.asarray(g)] = rows
+                finally:
+                    self._release_lease(lease)
+        for cls, lw, selected in window_jobs:
+            entries, pins = self._fill_prefix_entries(
+                cls, {key for _, key in selected})
+            try:
+                for entry in entries.values():
+                    if entry.prefetched:
+                        entry.prefetched = False
+                        trace.count("engine.prefetch_used")
+                # materialize each entry's dense view ONCE per window job:
+                # pool-backed entries gather device KV, which must not
+                # repeat per max_probe_batch chunk
+                with trace.span("engine.assemble"):
+                    dense = {key: self._entry_caches(e)
+                             for key, e in entries.items()}
+                for g in _chunks(selected, max_batch):
+                    idx = [i for i, _ in g]
+                    lease = self._lease_probe_blocks(len(g), cls)
+                    try:
+                        logits = self._run_window(cls, lw,
+                                                  [enc[i] for i in idx],
+                                                  [key for _, key in g],
+                                                  dense)
+                    finally:
+                        self._release_lease(lease)
+                    with trace.span("engine.scatter"):
+                        out[np.asarray(idx)] = logits
+            finally:
+                self._release_pins(pins)
+        return out
+
+    def _route(self, structured: dict, plain: dict) -> list[tuple]:
+        """Prefix-cache routing policy (per padded-length class): a row
+        rides the prefix path only when its (prefix, start) entry is
+        already cached or at least one class-mate shares it; otherwise the
+        fill would cost as much as the monolithic row.  Demoted rows join
+        the class's plain submission (``plain`` is extended in place).
+        Returns the window jobs, ``[(cls, lw, [(idx, key)])]``."""
+        window_jobs: list[tuple] = []
         for cls in sorted(structured):
             rows = structured[cls]
             counts: dict[tuple, int] = {}
@@ -548,43 +610,7 @@ class ServeEngine:
                     plain.setdefault(cls, []).extend(i for i, _ in sel)
                     continue
                 window_jobs.append((cls, lw, sel))
-
-        for cls in sorted(plain):
-            for g in _chunks(sorted(plain[cls]), max_batch):
-                lease = self._lease_probe_blocks(len(g), cls)
-                try:
-                    tokens = self._pad_ids([enc[i] for i in g], maxlen=cls)
-                    logits, _, _ = self._run(self._prefill, tokens)
-                    self.stats.prefill_tokens += int(tokens.size)
-                    self.stats.calls += 1
-                    self.stats.probe_rows += len(g)
-                    self.stats.probe_row_slots += int(tokens.shape[0])
-                    out[np.asarray(g)] = self._host(logits)[:len(g)]
-                finally:
-                    self._release_lease(lease)
-        for cls, lw, selected in window_jobs:
-            entries, pins = self._fill_prefix_entries(
-                cls, {key for _, key in selected})
-            try:
-                # materialize each entry's dense view ONCE per window job:
-                # pool-backed entries gather device KV, which must not
-                # repeat per max_probe_batch chunk
-                dense = {key: self._entry_caches(e)
-                         for key, e in entries.items()}
-                for g in _chunks(selected, max_batch):
-                    idx = [i for i, _ in g]
-                    lease = self._lease_probe_blocks(len(g), cls)
-                    try:
-                        logits = self._run_window(cls, lw,
-                                                  [enc[i] for i in idx],
-                                                  [key for _, key in g],
-                                                  dense)
-                    finally:
-                        self._release_lease(lease)
-                    out[np.asarray(idx)] = logits
-            finally:
-                self._release_pins(pins)
-        return out
+        return window_jobs
 
     def _lease_probe_blocks(self, rows: int, cls: int) -> Optional[list]:
         """Lease pool blocks covering ``rows`` probe rows of padded class
@@ -631,14 +657,17 @@ class ServeEngine:
                 self._region_key(pids, sids, cls))
         ensured = 0
         for cls in sorted(by_cls):
-            entries, pins = self._fill_prefix_entries(cls, by_cls[cls])
+            entries, pins = self._fill_prefix_entries(cls, by_cls[cls],
+                                                      prefetch=True)
             try:
                 ensured += len(entries)
             finally:
                 self._release_pins(pins)
         return ensured
 
-    def _fill_prefix_entries(self, cls: int, keys: set) -> tuple[dict, list]:
+    @trace.spanned("engine.fill")
+    def _fill_prefix_entries(self, cls: int, keys: set,
+                             prefetch: bool = False) -> tuple[dict, list]:
         """Prefill every missing (prefix ids, start) region of a class once,
         batching fills of equal region length into one submission; cache the
         per-entry KV in the LRU.  A region is ``PAD * pad + prefix``: the
@@ -650,7 +679,10 @@ class ServeEngine:
         round needing more entries than ``prefix_cache_size`` survives its
         own LRU evictions, plus the round's pin list for
         :meth:`_release_pins`: pool-backed entries hold one extra block
-        reference for the round so an eviction cannot free KV mid-use)."""
+        reference for the round so an eviction cannot free KV mid-use).
+        ``prefetch``: the fill is ``prefetch_prefixes``' (its new entries
+        are marked while a profiler records)."""
+        mark = prefetch and trace.recording()
         refs: dict[tuple, PrefixEntry] = {}
         pins: list[list] = []
 
@@ -704,9 +736,12 @@ class ServeEngine:
                             lambda l, r=r: (l if l.dim() == 2
                                             else l[:, r:r + 1].clone()),
                             caches))
+                    entry.prefetched = mark
                     self._prefix_lru[key] = entry
                     refs[key] = entry
                     pin(entry)
+                if mark:
+                    trace.count("engine.prefetch_filled", len(batch))
                 while len(self._prefix_lru) > self.prefix_cache_size:
                     self._evict_one_prefix()
         return refs, pins
@@ -756,36 +791,39 @@ class ServeEngine:
         job's ``dense`` materialized entries) plus the recomputed window
         tokens [cls - lw, cls)."""
         r_star = cls - lw
-        uniq: list = []
-        uniq_of: dict[tuple, int] = {}
-        for key in keys:
-            if key not in uniq_of:
-                uniq_of[key] = len(uniq)
-                uniq.append(dense[key])
-        rows = len(full_ids)
-        rows_p = _next_pow2(rows) if self.bucket_shapes else rows
-        arr = np.full((rows_p, lw), PAD, np.int32)
-        for r, ids in enumerate(full_ids):
-            row = [PAD] * (cls - len(ids)) + list(ids)  # left-padded full row
-            arr[r] = row[r_star:]
-        eidx = np.zeros((rows_p,), np.int64)
-        eidx[:rows] = [uniq_of[k] for k in keys]   # dummy rows reuse entry 0
-        idx = self._put(eidx)
+        with trace.span("engine.assemble"):
+            uniq: list = []
+            uniq_of: dict[tuple, int] = {}
+            for key in keys:
+                if key not in uniq_of:
+                    uniq_of[key] = len(uniq)
+                    uniq.append(dense[key])
+            rows = len(full_ids)
+            rows_p = _next_pow2(rows) if self.bucket_shapes else rows
+            arr = np.full((rows_p, lw), PAD, np.int32)
+            for r, ids in enumerate(full_ids):
+                row = [PAD] * (cls - len(ids)) + list(ids)  # left-padded
+                arr[r] = row[r_star:]
+            eidx = np.zeros((rows_p,), np.int64)     # dummy rows: entry 0
+            eidx[:rows] = [uniq_of[k] for k in keys]
+            idx = self._put(eidx)
 
-        def cat(*leaves):
-            if leaves[0].dim() == 2:               # stacked pos: arange(R)
-                return leaves[0][:, :r_star]
-            rows_kv = torch.cat([l[:, :, :r_star] for l in leaves], dim=1)
-            return rows_kv.index_select(1, idx)
+            def cat(*leaves):
+                if leaves[0].dim() == 2:               # stacked pos: arange(R)
+                    return leaves[0][:, :r_star]
+                rows_kv = torch.cat([l[:, :, :r_star] for l in leaves], dim=1)
+                return rows_kv.index_select(1, idx)
 
-        assembled = [KVCache(*(cat(*leaves) for leaves in zip(*per_stack)))
-                     for per_stack in zip(*uniq)]
+            assembled = [KVCache(*(cat(*leaves) for leaves in zip(*per_stack)))
+                         for per_stack in zip(*uniq)]
         # the per-row cache gather rides the token batch's row split
-        logits, _, _ = self._run(self.lm.prefill_cont, arr, assembled)
+        with trace.span("engine.prefill_cont"):
+            logits, _, _ = self._run(self.lm.prefill_cont, arr, assembled)
         self.stats.prefill_tokens += int(arr.size)
         self.stats.calls += 1
         self.stats.probe_rows += rows
         self.stats.probe_row_slots += rows_p
+        trace.count("engine.probe_rows", rows)
         # monolithic baseline: cls tokens per padded row of this submission
         self.stats.prefix_tokens_saved += rows_p * cls - int(arr.size)
         return self._host(logits)[:rows]

@@ -61,15 +61,18 @@ pumped (there are no step gaps to interleave into).  See DESIGN.md
 "Unified step loop".
 
 Counterpart of ``src/repro/serving/scheduler.py`` (copied; only imports and
-cross-references point at the port)."""
+cross-references point at the port, and the port's spans and counters
+(``repro_torch.trace``) are added)."""
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 
+from .. import trace
 from .engine import ServeEngine
 from .kv_pool import PoolExhausted
 
@@ -152,11 +155,15 @@ class RoundFuture:
     """Resolves when every probe of one round has its logits.  ``result()``
     returns the logits aligned with the round's submission order."""
 
-    __slots__ = ("_vals", "_left")
+    __slots__ = ("_vals", "_left", "_queued_ns")
 
     def __init__(self, n: int):
         self._vals: list = [None] * n
         self._left = n
+        # host clock at submission, taken only while a profiler records;
+        # cleared when the round's wait is counted
+        self._queued_ns = (time.perf_counter_ns() if trace.recording()
+                           else None)
 
     @property
     def done(self) -> bool:
@@ -390,6 +397,7 @@ class BatchScheduler:
         return f.rid
 
     # ------------------------------------------------------ the step loop
+    @trace.spanned("scheduler.step")
     def step(self) -> dict[int, str]:
         """ONE unified scheduling step (paged engines only):
 
@@ -635,8 +643,9 @@ class BatchScheduler:
         if self.paged:
             self.step()
         else:
-            self._service_fills()
-            self.probe_results.update(self.run_probes())
+            with trace.span("scheduler.step"):
+                self._service_fills()
+                self.probe_results.update(self.run_probes())
         return self.work_remaining
 
     def resolve(self, future: RoundFuture) -> RoundFuture:
@@ -807,6 +816,7 @@ class BatchScheduler:
             return mb
         return -(-mb // shards) * shards
 
+    @trace.spanned("scheduler.probes")
     def _service_probe_items(self, pending: list) -> dict[int, np.ndarray]:
         """Run one merged probe submission over ``pending`` (already
         removed from the queue).
@@ -825,6 +835,8 @@ class BatchScheduler:
         Cascade rounds run their draft wave FIRST (on the draft-engine
         lane); their escalations join this gap's large-lane submission, so
         both waves complete before the gap closes."""
+        if trace.recording():
+            self._count_round_waits(pending)
         draft = [w for w in pending if w.tier == "draft"]
         if draft:
             pending = [w for w in pending if w.tier != "draft"]
@@ -875,6 +887,18 @@ class BatchScheduler:
             else:
                 out[r.rid] = r.logits
         return out
+
+    @staticmethod
+    def _count_round_waits(pending: list) -> None:
+        """Each round's queue wait, from its submission to the first
+        servicing of any of its members, counted once, where stamped."""
+        t = time.perf_counter_ns()
+        for r in pending:
+            fut = r.future
+            if fut is not None and fut._queued_ns is not None:
+                trace.count("scheduler.round_wait_ns", t - fut._queued_ns)
+                trace.count("scheduler.rounds")
+                fut._queued_ns = None
 
     def _run_draft_wave(self, items: list) -> list:
         """Wave 1 of this gap's cascade rounds: one merged (deduped)
@@ -931,6 +955,7 @@ class BatchScheduler:
         self.probes_escalated += len(escalated)
         return escalated
 
+    @trace.spanned("scheduler.fills")
     def _service_fills(self) -> None:
         fills = [w for w in self.work if isinstance(w, PrefixFill)]
         if not fills:

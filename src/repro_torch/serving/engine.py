@@ -138,10 +138,13 @@ class ServeStats:
     decode_row_steps: int = 0
     calls: int = 0
     # prefix-KV cache counters: hits/misses are per entry lookup;
-    # fill_submissions counts the region-prefill forward passes (kept out
-    # of ``calls``, which counts PROBE submissions); tokens_saved is the
-    # padded prefill token count avoided vs monolithic whole-prompt
-    # submissions, net of fill costs.
+    # fill_submissions counts the region-length groups (and chunks of
+    # max_probe_batch) that the reference prefills one forward each (kept
+    # out of ``calls``, which counts PROBE submissions); the forwards the
+    # port runs, several lengths in one, are the trace counter
+    # ``engine.fill_forwards``.  tokens_saved is the padded prefill token
+    # count avoided vs monolithic whole-prompt submissions, net of fill
+    # costs, both as the reference counts them.
     prefix_hits: int = 0
     prefix_misses: int = 0
     prefix_fill_submissions: int = 0
@@ -668,10 +671,22 @@ class ServeEngine:
     @trace.spanned("engine.fill")
     def _fill_prefix_entries(self, cls: int, keys: set,
                              prefetch: bool = False) -> tuple[dict, list]:
-        """Prefill every missing (prefix ids, start) region of a class once,
-        batching fills of equal region length into one submission; cache the
-        per-entry KV in the LRU.  A region is ``PAD * pad + prefix``: the
-        exact content of positions [0, start) of every padded row using it.
+        """Prefill every missing (prefix ids, start) region of a class once;
+        cache the per-entry KV in the LRU.  A region is ``PAD * pad +
+        prefix``: the exact content of positions [0, start) of every padded
+        row using it.
+
+        The bookkeeping walks the reference's plan, one fill submission a
+        region length and ``max_probe_batch`` chunk: ``ServeStats``, pool
+        allocations and evictions, the dense fallback and LRU order are the
+        reference's.  The device work is not: the missing regions run
+        ``max_probe_batch`` at a time in one forward whatever their lengths
+        (:meth:`_fill_forward`), run when the walk reaches the chunk's first
+        region; its rows reach the pool in one write once the walk has
+        placed its last, and its caches are dropped then, so one chunk's
+        caches are live at a time, as in the reference (the call pins every
+        block it allocates, and nothing reads one before the call
+        returns).
 
         Entries are stored as pinned block runs in the paged pool (dense
         fallback when the pool is absent or cannot be freed up).  Returns
@@ -705,46 +720,74 @@ class ServeEngine:
             by_len.setdefault(pad + len(pids), []).append(key)
         step = self.max_probe_batch or max(
             (len(b) for b in by_len.values()), default=1)
-        for region_len in sorted(by_len):
-            # honor the engine's memory ceiling, then bucket the fill's row
-            # count like every other submission (the length itself must stay
-            # exact: it IS the suffix start position); dummy all-PAD rows
-            # are discarded
-            pending = by_len[region_len]
-            for batch in (pending[i:i + step]
-                          for i in range(0, len(pending), step)):
-                self.stats.prefix_misses += len(batch)
-                self.stats.prefix_fill_submissions += 1
-                rows_p = (_next_pow2(len(batch)) if self.bucket_shapes
-                          else len(batch))
-                arr = np.full((rows_p, region_len), PAD, np.int32)
-                for r, (pids, pad) in enumerate(batch):
-                    arr[r, pad:] = pids
-                # every process stores every row's region KV
-                _, caches, _ = self._run(self._prefill_exact, arr,
-                                         whole_caches=True)
-                self.stats.prefill_tokens += int(arr.size)
-                self.stats.prefix_tokens_saved -= int(arr.size)
-                row_blocks = self._pool_rows(len(batch), region_len)
+        # the reference's plan: its submissions honor the engine's memory
+        # ceiling and bucket their row count like every other submission
+        plan = [(region_len, by_len[region_len][i:i + step])
+                for region_len in sorted(by_len)
+                for i in range(0, len(by_len[region_len]), step)]
+        order = [key for _, batch in plan for key in batch]
+        chunks = [order[i:i + step] for i in range(0, len(order), step)]
+        caches, runs = None, []     # the live chunk's caches, a block run a row
+        i = 0                                       # a region's place in order
+        for region_len, batch in plan:
+            self.stats.prefix_misses += len(batch)
+            self.stats.prefix_fill_submissions += 1
+            tokens = region_len * (_next_pow2(len(batch)) if self.bucket_shapes
+                                   else len(batch))
+            self.stats.prefill_tokens += tokens
+            self.stats.prefix_tokens_saved -= tokens
+            row_blocks = self._pool_rows(len(batch), region_len)
+            for r, key in enumerate(batch):
+                j, row = divmod(i, step)
+                i += 1
+                if row == 0:                # the walk reaches chunk j
+                    caches, runs = self._fill_forward(chunks[j]), []
                 if row_blocks is not None:
-                    self.pool.write(caches, row_blocks)
-                for r, key in enumerate(batch):
-                    if row_blocks is not None:
-                        entry = PrefixEntry(region_len, blocks=row_blocks[r])
-                    else:
-                        entry = PrefixEntry(region_len, caches=_map_caches(
-                            lambda l, r=r: (l if l.dim() == 2
-                                            else l[:, r:r + 1].clone()),
-                            caches))
-                    entry.prefetched = mark
-                    self._prefix_lru[key] = entry
-                    refs[key] = entry
-                    pin(entry)
-                if mark:
-                    trace.count("engine.prefetch_filled", len(batch))
-                while len(self._prefix_lru) > self.prefix_cache_size:
-                    self._evict_one_prefix()
+                    runs.append(row_blocks[r])
+                    entry = PrefixEntry(region_len, blocks=row_blocks[r])
+                else:
+                    runs.append([])
+                    # the region's own positions of every leaf, pos included
+                    entry = PrefixEntry(region_len, caches=_map_caches(
+                        lambda l, row=row, n=region_len: (
+                            l[:, :n] if l.dim() == 2
+                            else l[:, row:row + 1, :n].clone()),
+                        caches))
+                entry.prefetched = mark
+                self._prefix_lru[key] = entry
+                refs[key] = entry
+                pin(entry)
+                if row == len(chunks[j]) - 1:   # chunk j placed: write, drop
+                    if any(runs):
+                        self.pool.write(caches, runs, lengths=[
+                            pad + len(pids) for pids, pad in chunks[j]])
+                    caches = None
+            if mark:
+                trace.count("engine.prefetch_filled", len(batch))
+            while len(self._prefix_lru) > self.prefix_cache_size:
+                self._evict_one_prefix()
         return refs, pins
+
+    def _fill_forward(self, keys: list) -> list:
+        """One forward over the regions ``keys`` (prefix ids, start),
+        whatever their lengths: row ``r`` is ``PAD * start + prefix``,
+        right-filled with PAD to the longest, in rows bucketed like every
+        submission's.  Prefill is causal and the model has no PAD mask, so
+        the K/V of a row's first ``L`` positions do not depend on the filler
+        after them: a region is the first ``L`` positions of its row.  Where
+        every region has one length, the array is the reference's fill
+        submission.  Returns every row's caches (every process stores every
+        row's region KV)."""
+        lmax = max(pad + len(pids) for pids, pad in keys)
+        rows_p = _next_pow2(len(keys)) if self.bucket_shapes else len(keys)
+        arr = np.full((rows_p, lmax), PAD, np.int32)
+        for r, (pids, pad) in enumerate(keys):
+            arr[r, pad:pad + len(pids)] = pids
+        _, caches, _ = self._run(self._prefill_exact, arr, whole_caches=True)
+        trace.count("engine.fill_forwards")
+        trace.count("engine.fill_regions", len(keys))
+        trace.count("engine.fill_tokens", int(arr.size))
+        return caches
 
     def _pool_rows(self, rows: int, length: int) -> Optional[list]:
         """Allocate a block run per row (evicting cold prefix entries if

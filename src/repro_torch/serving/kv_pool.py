@@ -42,7 +42,7 @@ Python/numpy; only the arenas live on the device.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -194,37 +194,69 @@ class KVBlockPool:
 
     # ------------------------------------------------------ device arenas
     def write(self, stack_caches, row_blocks: Sequence[Sequence[int]],
-              start: int = 0) -> None:
+              start: int = 0,
+              lengths: Optional[Sequence[int]] = None) -> None:
         """Scatter prefill-computed KV into block runs: positions
-        ``[start, S)`` of row ``r`` of ``stack_caches`` (a per-stack list of
-        stacked :class:`KVCache`, leaves (n, B, S, KV, hd)) land in
+        ``[start, lengths[r])`` of row ``r`` of ``stack_caches`` (a
+        per-stack list of stacked :class:`KVCache`, leaves (n, B, S, KV,
+        hd); ``lengths`` defaults to S for every row) land in
         ``row_blocks[r]`` in order.  ``start`` must be block-aligned;
         trailing bucket-dummy rows of the prefill batch (B > len(row_blocks))
-        are dropped.  The partial last block is zero-padded: readers mask by
-        valid length, never by block occupancy."""
+        are dropped.  Given ``lengths``, runs may cover unequal block counts
+        and a row given no blocks is skipped; without, every run covers the
+        same count.  Positions of a run past its row's length are zeroed:
+        readers mask by valid length, never by block occupancy.  The ids
+        are uploaded once; unless every row covers its whole span, every
+        (row, block) pair is gathered by one ``index_select``."""
         if not row_blocks:
             return
         bs = self.block_size
         assert start % bs == 0, "write start must be block-aligned"
-        nb = len(row_blocks[0])
-        assert all(len(b) == nb for b in row_blocks), (
-            "rows of one write must cover equal block counts")
-        ids = self._ids(i for b in row_blocks for i in b)
+        s = stack_caches[0].k.shape[2]
+        if lengths is None:
+            assert all(len(b) == len(row_blocks[0]) for b in row_blocks), (
+                "rows of one write must cover equal block counts")
+            lengths = [s] * len(row_blocks)
+        nb = self.blocks_for(s - start)          # blocks a cache row spans
         rows = len(row_blocks)
+        # every row its whole span: the gather is the identity, and the
+        # positions past the span are the zeros of the pad
+        whole = all(len(b) == nb for b in row_blocks) and all(
+            length == s for length in lengths)
+        if whole:
+            idx = self._ids(i for b in row_blocks for i in b)[None]
+        else:
+            dst, src, valid = [], [], []
+            for r, (blocks, length) in enumerate(zip(row_blocks, lengths)):
+                span = length - start
+                assert not blocks or (
+                    span <= s - start
+                    and self.blocks_for(span) <= len(blocks) <= nb), (
+                    f"row {r}: run of {len(blocks)} blocks for {span} positions")
+                for j, b in enumerate(blocks):
+                    dst.append(b)
+                    src.append(r * nb + j)
+                    valid.append(min(max(span - j * bs, 0), bs))
+            if not dst:
+                return
+            idx = self._ids(dst + src + valid).view(3, -1)
+            drop = (torch.arange(bs, device=self.device)
+                    >= idx[2, :, None])[None, :, :, None, None]
+        pad = nb * bs - (s - start)
         for si, (arena, cache) in enumerate(zip(self.arenas, stack_caches)):
-            n, _, s = cache.k.shape[:3]
-            span = s - start
-            pad = nb * bs - span
-            assert pad >= 0, f"run of {nb} blocks < {span} positions"
+            n = cache.k.shape[0]
 
             def to_blocks(leaf):
                 leaf = leaf[:, :rows, start:]
                 if pad:
                     leaf = F.pad(leaf, (0, 0, 0, 0, 0, pad))
-                return leaf.reshape(n, rows * nb, bs, *leaf.shape[3:])
+                leaf = leaf.reshape(n, rows * nb, bs, *leaf.shape[3:])
+                if whole:
+                    return leaf
+                return leaf.index_select(1, idx[1]).masked_fill_(drop, 0)
 
-            arena.k.index_copy_(1, ids, to_blocks(cache.k))
-            arena.v.index_copy_(1, ids, to_blocks(cache.v))
+            arena.k.index_copy_(1, idx[0], to_blocks(cache.k))
+            arena.v.index_copy_(1, idx[0], to_blocks(cache.v))
             self._pin(si, arena)
 
     def gather_stacked(self, block_ids: Sequence[int], length: int):

@@ -111,6 +111,28 @@ def test_stats_and_pool_counters_equal_field_by_field(script, stage):
     assert s["tlru"] == s["jlru"]
 
 
+@pytest.mark.parametrize("kw", [{}, {"max_probe_batch": 2}, {"pool_blocks": 8}],
+                         ids=["pool", "chunked", "small_pool"])
+def test_a_multi_length_fill_keeps_the_reference_accounting(models, kw):
+    """A round whose shared regions span three lengths: the port prefills
+    them in fewer forwards than the reference, and still counts the
+    reference's plan (``ServeStats``, pool counters, LRU order), cold and
+    warm."""
+    jlm, params, lm = models
+    je, te = JEngine(jlm, params, max_new_tokens=8, **kw), engine(lm, **kw)
+    probes = [("Criteria: c\nPassage B: the pivot\n", f"Passage A: item {i}\nAnswer:")
+              for i in (1, 2, 10, 11, 100, 101)]
+    for rnd in range(2):
+        got, want = te.submit_probes(probes), je.submit_probes(probes)
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+        assert stats_dict(te.stats) == stats_dict(je.stats)
+        assert pool_dict(te.pool) == pool_dict(je.pool)
+        assert list(te._prefix_lru) == list(je._prefix_lru)
+        if rnd == 0:
+            assert te.stats.prefix_fill_submissions == 3
+    assert te.stats.prefix_hits >= 1
+
+
 @pytest.mark.parametrize("stage", ["generate", "lockstep"])
 def test_generated_strings_equal(script, stage):
     assert script[stage]["t"] == script[stage]["j"]

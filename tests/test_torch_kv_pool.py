@@ -194,6 +194,37 @@ def test_write_gather_roundtrip_in_place(pool, lms):
     assert not pool.arenas[0].k[:, rows[0][-1], s % 8:].any()
 
 
+@pytest.mark.parametrize("start", [0, 8])
+def test_write_with_lengths_is_each_row_written_alone(lms, start):
+    """Rows of one write holding unequal lengths (one row given no blocks)
+    land as if each row's first ``length`` positions were written on their
+    own: the same arena bits, the tails of last blocks zero."""
+    cfg = lms[1].cfg
+    n, s = cfg.pattern[0][1], 29
+    _, (k, v) = kv_pair(3, (n, 5, s, cfg.n_kv_heads, cfg.hd))
+    caches = [KVCache(k, v, torch.arange(s).expand(n, s))]
+    lengths = [29, 11 + start, 20, 29, 17 + start]
+    merged, alone = (KVBlockPool(lms[1], num_blocks=17, block_size=8, device="cpu")
+                     for _ in range(2))
+    runs = [merged.alloc(merged.blocks_for(L - start)) for L in lengths]
+    runs[3] = []                                   # a row with no run: skipped
+    for L, run in zip(lengths, runs):
+        if run:
+            alone.alloc(len(run))
+    merged.write(caches, runs, start=start, lengths=lengths)
+    for r, (L, run) in enumerate(zip(lengths, runs)):
+        if run:
+            row = [KVCache(k[:, r:r + 1, :L], v[:, r:r + 1, :L], torch.arange(L).expand(n, L))]
+            alone.write(row, [run], start=start)
+    assert torch.equal(merged.arenas[0].k, alone.arenas[0].k)
+    assert torch.equal(merged.arenas[0].v, alone.arenas[0].v)
+    got = merged.gather_stacked(runs[1], lengths[1] - start)[0]
+    assert torch.equal(got.k[:, 0], k[:, 1, start:lengths[1]])
+    assert not merged.arenas[0].k[:, runs[1][-1], (lengths[1] - start) % 8:].any()
+    with pytest.raises(AssertionError):           # a run short of its length
+        merged.write(caches, [runs[1]], start=start, lengths=[29])
+
+
 def test_write_rejects_unaligned_start_and_unequal_runs(pool, lms):
     cfg = lms[1].cfg
     n = cfg.pattern[0][1]

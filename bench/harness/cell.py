@@ -3,8 +3,9 @@
 ``run_cell`` takes the cell's entry of ``BENCHMARK.json``, its
 configuration and mix files (found by name), the seed, the window's
 seconds and whether to trace, and returns the result line.  Everything
-that belongs to one configuration, one mix or one per-layer metric comes
-from its own file; nothing here names a cell.
+that belongs to one configuration, one mix, one architecture or one
+per-layer metric comes from its own file; nothing here names a cell or a
+model's block.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from . import check, trace as trace_mod, weights as weights_mod
 from .loop import ClosedLoop, Spans
 from .reference import prompt_ids
 from .traffic import make_table
-from .yardstick import PEAK_FLOPS_BF16, prompt_flops
+from .yardstick import PEAK_FLOPS_BF16
 
 BENCH = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -49,22 +50,34 @@ def program():
         ("access_paths", "access_paths"), ("optimizer", "optimizer.optimizer"),
         ("model_oracle", "oracles.model_oracle"))}
     mods["LM"] = importlib.import_module("repro_torch.models").LM
-    mods["ModelConfig"] = importlib.import_module(
-        "repro_torch.models.config").ModelConfig
+    mods["model_config"] = importlib.import_module("repro_torch.models.config")
     serving = importlib.import_module("repro_torch.serving")
     mods["ServeEngine"] = serving.ServeEngine
     mods["BatchScheduler"] = serving.BatchScheduler
     return SimpleNamespace(**mods)
 
 
-def metric_reader(name: str):
-    """``bench/metrics/<name>.py``'s ``read`` (a metric's name may hold
-    characters a module name may not, so the file is loaded by its path)."""
-    path = BENCH / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+def _by_path(kind: str, name: str, base: Path):
+    """``<base>/<kind>/<name>.py`` as a module (a name may hold characters
+    a module name may not, so the file is loaded by its path)."""
+    path = base / kind / f"{name}.py"
+    mod_spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """``bench/metrics/<name>.py``'s ``read``."""
+    return _by_path("metrics", name, BENCH).read
+
+
+def architecture(config: dict, base: Path = BENCH):
+    """The model a configuration serves: ``<base>/architectures/<name>.py``
+    for the file's ``"architecture"``, ``dense`` where it names none.  It
+    exports ``draw``, ``program_config``, ``program_tree``, ``Reference``
+    and ``prompt_flops``."""
+    return _by_path("architectures", config.get("architecture", "dense"), base)
 
 
 def p90(values: list) -> float:
@@ -114,11 +127,14 @@ class TraceSlice:
 
 def run_cell(spec: dict, cell: dict, config: dict, mix: dict, seed: int,
              seconds: float, traced: bool, device, t_start: float,
-             log=lambda *a: None, control: bool = False) -> dict:
+             log=lambda *a: None, control: bool = False,
+             base: Path = BENCH) -> dict:
     """One run; ``control`` also judges the fp8 reference put in the
-    program's place by the same limits (``bench/control.py``)."""
+    program's place by the same limits (``bench/control.py``).  The
+    configuration's architecture file is found under ``base``."""
     import torch
     p = program()
+    arch = architecture(config, base)
     model = config["model"]
     on_card = torch.device(device).type == "cuda"
 
@@ -129,17 +145,11 @@ def run_cell(spec: dict, cell: dict, config: dict, mix: dict, seed: int,
     # ---- set-up: weights on the device (one model a configuration, whatever
     # the seed: the seed draws the traffic), the program, the loop warmed up
     wseed = config["weights_seed"]
-    weights = weights_mod.draw(model, wseed, device)
-    weights_mod.balance_readouts(weights, model, weights_mod.balance_prompts(
+    weights = arch.draw(model, wseed, device)
+    weights_mod.balance_readouts(arch, weights, model, weights_mod.balance_prompts(
         make_table(mix, wseed, mix["clients"], 0), wseed, mix["readouts"]))
-    cfg = p.ModelConfig(
-        name=config["name"], family="dense", n_layers=model["n_layers"],
-        d_model=model["d_model"], n_heads=model["n_heads"],
-        n_kv_heads=model["n_kv_heads"], d_ff=model["d_ff"],
-        vocab_size=model["vocab_size"], head_dim=model.get("head_dim", 0),
-        pattern=(("attn", model["n_layers"]),), rope_theta=model["rope_theta"],
-        norm_eps=model["norm_eps"], dtype="bfloat16")
-    lm = p.LM.from_tree(cfg, weights_mod.program_tree(weights))
+    lm = p.LM.from_tree(arch.program_config(p.model_config, config),
+                        arch.program_tree(weights))
     engine = p.ServeEngine(lm, device=device, **config["engine"])
     sched = p.BatchScheduler(engine)
     spans = Spans(annotate=traced)
@@ -203,7 +213,7 @@ def run_cell(spec: dict, cell: dict, config: dict, mix: dict, seed: int,
     layer_input = {
         "counters": counters, "window_s": window_s, "ticks": loop.ticks,
         "operator_self_s": spans.operator_self,
-        "flops": sum(prompt_flops(model, len(prompt_ids(prompt)))
+        "flops": sum(arch.prompt_flops(model, len(prompt_ids(prompt)))
                      for prompt, _six in check.window_rows(answered)),
         "peak_flops": PEAK_FLOPS_BF16, "trace": tr, "model": model,
         "engine": config["engine"],
@@ -220,7 +230,7 @@ def run_cell(spec: dict, cell: dict, config: dict, mix: dict, seed: int,
     numbers = {"failed_queries": len(errors) + len(lost),
                "readout_faults": check.readout_faults(answered),
                "order_faults": sum(check.order_fault(q, mix) for q in returned)}
-    gaps = check.model_gaps(answered, model, weights, seed,
+    gaps = check.model_gaps(answered, arch, model, weights, seed,
                             mix["check"]["probe_rows"], control=control)
     limits = dict.fromkeys(EXACT, 0)
     if "probe_logit_gap" in gaps:

@@ -22,8 +22,10 @@ rows answered in the window, the longest always in it:
   from the reference's, over the spread of the reference's logits at that
   row.
 
-``control=True`` also reads it for the reference run in fp8
-(``reference.Reference(quant="fp8")``) put in the program's place.
+The reference is the configuration's architecture's (``Reference`` of
+``bench/architectures/<name>.py``).  ``control=True`` also reads the gap
+for that reference run in fp8 (``quant="fp8"``) put in the program's
+place.
 """
 from __future__ import annotations
 
@@ -102,13 +104,13 @@ def window_rows(queries) -> list:
             for it, six in zip(_flat(r), r.six)]
 
 
-def model_gaps(queries, model: dict, weights: dict, seed: int, n_probe: int,
-               control: bool = False) -> dict:
+def model_gaps(queries, arch, model: dict, weights: dict, seed: int,
+               n_probe: int, control: bool = False) -> dict:
     rng = np.random.default_rng([int(seed), 7])
     probes = _sample(rng, window_rows(queries),
                      lambda row: len(ref.prompt_ids(row[0])), n_probe)
-    fp32 = ref.Reference(model, weights)
-    low = ref.Reference(model, weights, quant="fp8") if control else None
+    fp32 = arch.Reference(model, weights, quant="none")
+    low = arch.Reference(model, weights, quant="fp8") if control else None
     out: dict = {"probe_rows": len(probes)}
     gaps, ctrl_gaps = [], []
     for prompt, six in probes:

@@ -3,7 +3,7 @@ import statistics
 
 import numpy as np
 
-from bench.harness import yardstick
+from bench.architectures import dense
 from bench.harness.cell import p90
 
 
@@ -37,12 +37,12 @@ def test_flops_match_a_hand_count():
     m = {"n_layers": 24, "d_model": 2048, "n_heads": 32, "n_kv_heads": 32,
          "head_dim": 64, "d_ff": 5632, "vocab_size": 100352}
     per_layer = 2 * (2048 * 2048 * 4 + 3 * 2048 * 5632)   # q, k, v, o; SwiGLU
-    assert yardstick.matmul_flops_per_token(m) == 24 * per_layer
+    assert dense.matmul_flops_per_token(m) == 24 * per_layer
     n = 100
     attn = 24 * 4 * 2048 * (n * (n + 1) // 2)            # q.k and p.v, causal
     head = 2 * 2048 * 100352
-    assert yardstick.prompt_flops(m, n) == n * 24 * per_layer + attn + head
+    assert dense.prompt_flops(m, n) == n * 24 * per_layer + attn + head
     gqa = dict(m, n_kv_heads=8)
-    assert (yardstick.matmul_flops_per_token(m) - yardstick.matmul_flops_per_token(gqa)
+    assert (dense.matmul_flops_per_token(m) - dense.matmul_flops_per_token(gqa)
             == 24 * 2 * 2 * 2048 * (32 - 8) * 64)
 

@@ -38,15 +38,22 @@ def test_quick_cell_runs_correct_and_traced():
 
 
 def test_the_weights_follow_the_configuration_not_the_run_seed(monkeypatch):
-    from bench.harness import weights
+    from bench.harness import cell as cell_mod
     drawn = []
-    draw = weights.draw
+    architecture = cell_mod.architecture
 
-    def recording(model, seed, device):
-        drawn.append(seed)
-        return draw(model, seed, device)
+    def recording(config, base=cell_mod.BENCH):
+        arch = architecture(config, base)      # a fresh module each run
+        draw = arch.draw
 
-    monkeypatch.setattr(weights, "draw", recording)
+        def draw_recorded(model, seed, device):
+            drawn.append(seed)
+            return draw(model, seed, device)
+
+        arch.draw = draw_recorded
+        return arch
+
+    monkeypatch.setattr(cell_mod, "architecture", recording)
     cell = tiny.cell_named("phi4-mini-3.8b.tweets_top10_pointwise")
     config, mix = load("configs", cell["config"]), load("mixes", cell["traffic"])
     tiny.shrink(config, mix)

@@ -1,5 +1,5 @@
-"""Nothing under bench/ imports JAX or the JAX package; the reference and
-the yardstick import nothing of the program.  Module names are compared by
+"""Nothing under bench/ imports JAX or the JAX package; the reference, the
+yardstick and every architecture import nothing of the program.  Module names are compared by
 their whole top-level name (``repro_torch`` is not ``repro``)."""
 import ast
 from pathlib import Path
@@ -10,6 +10,8 @@ BENCH = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 YARDSTICK = ("harness/reference.py", "harness/traffic.py", "harness/yardstick.py",
              "harness/weights.py", "harness/check.py")
+ARCHITECTURES = sorted((BENCH / "architectures").glob("*.py")) + [BENCH / "tests" / "toy_moe.py"]
+ARCHITECTURE_IMPORTS = {"__future__", "math", "numpy", "torch", "bench"}
 
 
 def top_level_imports(path: Path) -> set:
@@ -33,6 +35,16 @@ def test_no_jax_anywhere(path):
 @pytest.mark.parametrize("rel", YARDSTICK)
 def test_reference_and_yardstick_import_nothing_of_the_program(rel):
     assert "repro_torch" not in top_level_imports(BENCH / rel)
+
+
+@pytest.mark.parametrize("path", ARCHITECTURES, ids=lambda p: str(p.relative_to(BENCH)))
+def test_an_architecture_imports_torch_numpy_and_the_shared_reference_only(path):
+    assert top_level_imports(path) <= ARCHITECTURE_IMPORTS
+    tree = ast.parse(path.read_text())
+    assert {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+            and n.module.startswith("bench")} <= {"bench.harness.reference"}
+    assert not any(isinstance(n, ast.Import) and any(a.name.startswith("bench") for a in n.names)
+                   for n in ast.walk(tree))
 
 
 def test_whole_names_are_compared(monkeypatch):

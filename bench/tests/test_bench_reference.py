@@ -4,6 +4,7 @@ decode steps, on the padded rows the engine serves."""
 import pytest
 import torch
 
+from bench.architectures import dense
 from bench.harness import reference as ref
 from bench.harness import weights as W
 
@@ -14,13 +15,13 @@ MODEL = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "head_dim"
 def _pair():
     from repro_torch.models import LM
     from repro_torch.models.config import ModelConfig
-    w = W.draw(MODEL, 2**31 + 3, "cpu")
+    w = dense.draw(MODEL, 2**31 + 3, "cpu")
     w = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict) else v.float())
          for k, v in w.items()}
     cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
                       n_kv_heads=2, d_ff=128, vocab_size=512, head_dim=16,
                       pattern=(("attn", 2),), rope_theta=10000.0, dtype="float32")
-    return LM.from_tree(cfg, W.program_tree(w)), ref.Reference(MODEL, w)
+    return LM.from_tree(cfg, dense.program_tree(w)), dense.Reference(MODEL, w)
 
 
 @pytest.mark.parametrize("prompt", [
@@ -65,13 +66,13 @@ def test_decode_steps_match_and_token_gaps_read_zero():
 
 
 def test_readout_pairs_are_centred():
-    w = W.draw(MODEL, 11, "cpu")
+    w = dense.draw(MODEL, 11, "cpu")
     from bench.harness.traffic import nba_heights
     table = nba_heights(40, seed=5)
     prompts = W.balance_prompts(table, 11, ["compare", "score"], n=16)
     assert set(prompts) == {(ref.TOK_A, ref.TOK_B), (ref.TOK_HI, ref.TOK_LO)}
-    W.balance_readouts(w, MODEL, prompts)
-    r = ref.Reference(MODEL, w, quant="bf16")
+    W.balance_readouts(dense, w, MODEL, prompts)
+    r = dense.Reference(MODEL, w, quant="bf16")
     diffs = []
     for p in prompts[(ref.TOK_A, ref.TOK_B)]:
         row = ref.padded_row(ref.prompt_ids(p))

@@ -36,13 +36,14 @@ def shrink(config: dict, mix: dict, clients: int = 2) -> None:
 
 
 def run(cell: dict, config: dict, mix: dict, seed: int = 2**31 + 77,
-        seconds: float = 1.5, traced: bool = False, control: bool = False) -> dict:
+        seconds: float = 1.5, traced: bool = False, control: bool = False,
+        **kw) -> dict:
     import torch
     from bench.harness.cell import run_cell
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 2))    # test workers share the CPU
     try:
         return run_cell(spec(), cell, config, mix, seed, seconds, traced, "cpu",
-                        time.perf_counter(), control=control)
+                        time.perf_counter(), control=control, **kw)
     finally:
         torch.set_num_threads(threads)
